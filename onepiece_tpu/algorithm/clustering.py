@@ -1,6 +1,6 @@
 """Clustering: k-means, mean-shift, k-medoids.
 
-TPU redesign of `algorithm::Clustering` (ref: src/Algorithm/Clustering.{h,cpp}
+Device redesign of `algorithm::Clustering` (ref: src/Algorithm/Clustering.{h,cpp}
 — cv::kmeans-backed K-means :38-73, mean-shift :76+, medoids). All three are
 classic fixed-iteration array algorithms; the device versions use one
 distance matmul per iteration and run under jit with static iteration

@@ -3,7 +3,7 @@
 Rebuild of `algorithm::DCEL` + `Arrangements` (ref: src/Algorithm/DCEL.
 {h,cpp} — vertex/half-edge/face tables, line insertion, face walking;
 src/Algorithm/Arrangements.{h,cpp} — bounding-box init + intersection
-computation). Host-side code (pointer-chasing is not TPU work — the device
+computation). Host-side code (pointer-chasing is not device work — the device
 contributes upstream line fitting and downstream room embedding).
 
 Construction differs from the reference's incremental insertion: all lines

@@ -10,7 +10,7 @@ the patch model refit once per FRONTIER NODE (:146-173), not per
 candidate. Visited-but-rejected candidates are CONSUMED (the reference
 erases them from `un_visited` before the inlier test, :155-158).
 
-TPU/vectorisation split: the per-point local fits are one batched
+Device/host split: the per-point local fits are one batched
 eigendecomposition over the kNN tensor (device-friendly numpy here — the
 kNN itself comes from the device); the BFS is host control flow, but each
 model refit is O(D^3) from incremental running sums (count, sum p,

@@ -63,7 +63,7 @@ class PinholeCamera:
     def backproject_grid(self, depth: jax.Array) -> jax.Array:
         """Depth image (H, W) -> camera-frame XYZ image (H, W, 3).
 
-        TPU-native form of the per-pixel backprojection the reference does in
+        Vectorised form of the per-pixel backprojection the reference does in
         `GetPcdFromDepth`-style loops (ref: src/Geometry/Geometry.cpp:72-106):
         one broadcasted iota instead of a pixel loop.
         """

@@ -1,7 +1,7 @@
 """Point clouds as fixed-capacity padded pytrees.
 
-TPU-native replacement for `geometry::PointCloud` (ref:
-src/Geometry/PointCloud.{h,cpp}). The reference grows std::vectors; on TPU
+Array-first replacement for `geometry::PointCloud` (ref:
+src/Geometry/PointCloud.{h,cpp}). The reference grows std::vectors; on device
 dynamic sizes force recompiles, so a cloud is a fixed-capacity array bundle
 with a validity mask. Capacities are bucketed (next power of two) so repeated
 pipeline stages reuse compiled programs.
@@ -130,7 +130,7 @@ def merge(a: PointCloud, b: PointCloud) -> PointCloud:
 def voxel_downsample(cloud: PointCloud, voxel_size: float, out_capacity: int | None = None) -> PointCloud:
     """Voxel-grid average downsample (ref: src/Geometry/PointCloud.cpp:145-189).
 
-    TPU design: instead of a hash map, voxel keys are sorted and runs are
+    Device design: instead of a hash map, voxel keys are sorted and runs are
     averaged with segment_sum — one sort + three segment reductions, no
     host round-trip. Output keeps input capacity (or `out_capacity`) with a
     mask; one representative (averaged) point per occupied voxel.
@@ -179,7 +179,7 @@ def estimate_normals(cloud: PointCloud, k: int = 16, radius: float | None = None
     """Normal estimation via k-NN + smallest covariance eigenvector.
 
     (ref: src/Geometry/PointCloud.cpp:102-144 `EstimateNormals`). The KD-tree
-    is replaced by the brute-force MXU k-NN (ops/knn.py). Normals are
+    is replaced by the exact brute-force k-NN (ops/knn.py). Normals are
     oriented toward the origin (viewpoint) like the reference.
     """
     idx, dist = knn_ops.knn(cloud.points, cloud.points, cloud.valid, k=k)

@@ -137,7 +137,7 @@ def _so3_left_jacobian_inv(phi: jax.Array) -> jax.Array:
 def se3_exp(xi: jax.Array) -> jax.Array:
     """Twist (..., 6) [rho, phi] -> homogeneous transform (..., 4, 4).
 
-    TPU-native replacement of `Se3ToSE3` (ref: src/Geometry/Geometry.cpp:9-13).
+    Batched replacement of `Se3ToSE3` (ref: src/Geometry/Geometry.cpp:9-13).
     """
     rho, phi = xi[..., :3], xi[..., 3:]
     R = so3_exp(phi)
@@ -149,7 +149,7 @@ def se3_exp(xi: jax.Array) -> jax.Array:
 def se3_log(T: jax.Array) -> jax.Array:
     """Homogeneous transform (..., 4, 4) -> twist (..., 6) [rho, phi].
 
-    TPU-native replacement of `SE3ToSe3` (ref: src/Geometry/Geometry.cpp:14-18).
+    Batched replacement of `SE3ToSe3` (ref: src/Geometry/Geometry.cpp:14-18).
     """
     R = T[..., :3, :3]
     t = T[..., :3, 3]

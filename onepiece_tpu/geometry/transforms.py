@@ -1,6 +1,6 @@
 """Rigid-transform estimation and geometric fitting, batched-first.
 
-TPU-native replacements for the reference's Eigen/SVD-based fitting
+Batched replacements for the reference's Eigen/SVD-based fitting
 (ref: src/Geometry/Geometry.cpp:107-262). Every function is written to be
 vmapped over a leading batch axis — batched Kabsch over thousands of RANSAC
 hypotheses is the design center, not an afterthought.
@@ -53,9 +53,8 @@ def kabsch_fast(
     power iteration, built for huge hypothesis batches.
 
     XLA lowers the batched 3x3 SVD inside RANSAC hypothesis generation to
-    an iterative scalar-heavy routine that dominates the sparse tracking
-    budget (~1.9 ms of a 5.2 ms track step at 256 hypotheses, measured
-    on-chip; the whole track step drops to 1.5 ms with this solver).
+    an iterative scalar-heavy routine that dominated the sparse tracking
+    budget at 256 hypotheses.
     Horn's closed form (Horn 1987, "Closed-form solution of absolute
     orientation using unit quaternions") needs only the top eigenvector of
     a symmetric 4x4 built from the covariance; an E0-shifted power
@@ -95,8 +94,8 @@ def kabsch_fast(
     )[..., None, None]
     Kp = K + e0 * jnp.eye(4, dtype=K.dtype)
     # square twice: iterating Kp^4 quadruples the convergence rate per
-    # step, cutting the sequential dependent-op chain (the actual cost on
-    # TPU — each tiny matvec is latency, not FLOPs) to two batched 4x4
+    # step, cutting the sequential dependent-op chain (the actual cost —
+    # each tiny matvec is latency, not FLOPs) to two batched 4x4
     # matmuls + ceil(iters/4) matvecs. One Frobenius rescale keeps f32 in
     # range so per-step normalisation is unnecessary.
     K2 = jnp.einsum("...ij,...jk->...ik", Kp, Kp)
@@ -163,7 +162,7 @@ def estimate_normals_from_neighbors(neighbors: jax.Array, valid: jax.Array) -> j
     """Per-point normal from its K gathered neighbors.
 
     neighbors (..., N, K, 3), valid (..., N, K) -> unit normals (..., N, 3).
-    TPU-native replacement for the KD-tree + per-point plane fit of
+    Batched replacement for the KD-tree + per-point plane fit of
     `PointCloud::EstimateNormals` (ref: src/Geometry/PointCloud.cpp:102-144):
     the neighbor gather happens upstream (brute-force top-k on device), here
     we batch the smallest-eigenvector extraction with eigh on 3x3 covariances.

@@ -1,6 +1,6 @@
 """Voxel-block TSDF volume: fixed device pool + host hash table.
 
-TPU redesign of `integration::CubeHandler` (ref:
+Device redesign of `integration::CubeHandler` (ref:
 src/Integration/CubeHandler.{h,cpp}). The reference stores cubes in an
 `unordered_map<CubeID, VoxelCube>`; dynamic hash maps don't exist on device,
 so the rebuild splits responsibilities:
@@ -35,6 +35,32 @@ from ..ops.tsdf import CUBE_SIZE
 DEFAULT_VOXEL_SIZE = 0.0125
 DEFAULT_TRUNCATION = 0.1
 
+N_VOX = CUBE_SIZE**3  # 512 voxels per block
+
+
+# -- device pool layout (systems/fused_slam.py, parallel/) ---------------------
+#
+# The device-resident systems keep one channels-first pool (B+1, 5, 512)
+# float32 with channels [sdf, weight, r, g, b]; row B is a trash row that
+# padding slots point at (`ops.tsdf_triton.integrate_slots`).
+
+
+def make_pool(capacity: int) -> jax.Array:
+    """Fresh (capacity+1, 5, 512) pool; sdf=EMPTY, weight=0, last row trash."""
+    vox = jnp.zeros((capacity + 1, 5, N_VOX), jnp.float32)
+    return vox.at[:, 0, :].set(tsdf_ops.EMPTY_SDF)
+
+
+def pool_to_blocks(vox: jax.Array):
+    """(B+1, 5, 512) -> (sdf, weight, color) in the (B, 8, 8, 8[,3]) layout."""
+    n = CUBE_SIZE
+    b = vox.shape[0] - 1
+    body = vox[:b]
+    sdf = body[:, 0].reshape(b, n, n, n)
+    weight = body[:, 1].reshape(b, n, n, n)
+    color = jnp.moveaxis(body[:, 2:5], 1, -1).reshape(b, n, n, n, 3)
+    return sdf, weight, color
+
 
 @functools.partial(
     jax.jit,
@@ -57,7 +83,7 @@ def _integrate_slots(
     w_g = weight[safe].reshape(m, -1)
     c_g = color[safe].reshape(m, -1, 3)
     bc_g = block_coords[safe]
-    sdf_n, w_n, c_n = tsdf_ops.integrate_blocks_matmul(
+    sdf_n, w_n, c_n = tsdf_ops.integrate_blocks(
         sdf_g, w_g, c_g, bc_g, active, depth, rgb, T_cw,
         fx, fy, cx, cy, voxel_size, truncation, max_weight,
     )

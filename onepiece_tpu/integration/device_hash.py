@@ -4,9 +4,8 @@ The reference allocates TSDF blocks through a host-side
 `unordered_map<CubeID, VoxelCube>` (ref: src/Integration/CubeHandler.h:22,
 CubeHandler.cpp:147-196 `PrepareCubes`). Round 1 kept that split — device
 computes touched keys, host uniquifies and assigns pool slots — but every
-frame then pays one device->host key transfer. On a remote-attached chip a
-blocking round-trip costs ~35 ms, which caps the whole pipeline at ~25 fps
-no matter how fast the kernels are.
+frame then pays one blocking device->host key transfer, which caps the
+whole pipeline no matter how fast the kernels are.
 
 This module moves the hash table itself onto the device: open addressing
 with linear probing over a power-of-2 table of packed 30-bit block keys.
@@ -83,8 +82,7 @@ def insert(
     (-1 for padding / dropped keys). Pool-capacity overflow drops keys and
     counts them in `table.overflow` (callers can grow + retry offline).
 
-    Two phases, tuned around XLA-on-TPU scatter cost (~0.2 ms per scatter
-    regardless of index count — 16 scatter rounds is 5 ms of launches):
+    Two phases, so that the steady state issues no scatter rounds at all:
 
       1. LOOKUP, fully vectorised: gather the table at all `max_probes`
          probe positions of every key at once (one (K, P) gather), take each
@@ -145,8 +143,8 @@ def insert(
         return tk, ts, bc, na, pending, slots
 
     # steady state resolves everything in the lookup phase; skip the claim
-    # scatters entirely then (lax.cond branches really execute on TPU, and
-    # the ~4 scatters/round cost ~1.5 ms per frame otherwise)
+    # scatters entirely then (the cond keeps ~4 scatters per round out of
+    # every steady-state frame)
     tk, ts, bc, na, pending, slots = jax.lax.cond(
         jnp.any(pending),
         lambda args: jax.lax.fori_loop(0, claim_rounds, round_body, args),

@@ -11,7 +11,7 @@ Parity with the reference's submap workflow:
     interpolation (ref: CubeHandler::Transform / ReadVoxelInterpolate,
     CubeHandler.h:242-298; TransformNearest :299-338)
 
-Transform design (TPU): the old volume's block keys are sorted once; every
+Transform design (device): the old volume's block keys are sorted once; every
 new voxel corner does a vectorised binary-search (searchsorted) into the
 key table + one gather — no host hash probing in the inner loop. This is an
 offline operation (used by MergeMultipleSubmaps), so one pass of gathers is

@@ -15,7 +15,7 @@ little-endian float words):
                     terminator word
   voxel index     : x + 8*y + 64*z (x fastest, ref VoxelCube.h:81-86);
                     this module permutes to/from the pool layout's
-                    64*x + 8*y + z (z fastest, ops/tsdf_pallas.py)
+                    64*x + 8*y + z (z fastest, integration/blocks.py)
 
 sdf is truncation-normalised ([-1, 1]) in both systems; colors are [0, 1]
 floats.

@@ -1,7 +1,7 @@
 // Native mesh algorithms: quadric-error-metric simplification and
 // connected-component pruning.
 //
-// TPU-side code handles the array-shaped mesh work (marching cubes,
+// Device-side code handles the array-shaped mesh work (marching cubes,
 // clustering simplification); these two algorithms are inherently
 // sequential (global priority queue / union-find) and run on the host,
 // exactly as the reference does in C++

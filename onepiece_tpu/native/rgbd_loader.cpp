@@ -1,6 +1,6 @@
 // Native RGB-D dataset loader: libpng decode + threaded prefetch ring.
 //
-// TPU-native counterpart of the reference's frame-loading loop
+// Host-side counterpart of the reference's frame-loading loop
 // (ref: example/DenseFusion/DenseFusion.cpp:41-47 cv::imread per frame,
 // src/Tool/IO.cpp:59-108 ReadImageSequence) — the reference decodes PNGs
 // synchronously on the render thread with OpenCV; here a worker pool

@@ -1,6 +1,6 @@
 """Multi-scale dense RGB-D tracking (direct photometric+geometric alignment).
 
-TPU redesign of `Odometry::DenseTracking` + `MultiScaleComputing`
+Device redesign of `Odometry::DenseTracking` + `MultiScaleComputing`
 (ref: src/Odometry/Odometry.cpp:463-608, :621-685). The whole coarse-to-fine
 Gauss-Newton schedule is jitted: each pyramid level runs a fixed-iteration
 `lax.fori_loop` whose body is the fused warp/residual/Jacobian/6x6-reduction
@@ -56,7 +56,7 @@ def _depth_pyr_down(depth: jax.Array) -> jax.Array:
     """Validity-aware 2x2 average: mean of nonzero depths, 0 if all invalid.
 
     (The reference pyrDowns depth like intensity, which smears zeros across
-    boundaries; TPU rebuild avoids poisoning coarse levels.)
+    boundaries; this rebuild avoids poisoning coarse levels.)
     """
     h, w = depth.shape
     d = depth[: h - h % 2, : w - w % 2].reshape(h // 2, 2, w // 2, 2)
@@ -183,9 +183,8 @@ def dense_tracking_exact(
     `MultiScaleComputing`, iteration counts {16, 8, 4} coarse->fine).
 
     This is the reference-exact formulation with per-iteration bilinear
-    gathers — numerically the baseline, but TPU gathers cost ~7ns/index so
-    per-iteration gathers are slow there; `dense_tracking` (pre-warp +
-    stencil) is the TPU-fast path validated against this one.
+    gathers — numerically the baseline; `dense_tracking` (pre-warp +
+    stencil) is the production path validated against this one.
     """
     levels = len(source.grays)
     assert len(iters) == levels
@@ -232,9 +231,9 @@ def chain_pose(T_w_source: jax.Array, T_ts: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# TPU-fast path: per-level BILINEAR pre-warp (one quad-packed row gather) +
+# Production path: per-level BILINEAR pre-warp (one quad-packed row gather) +
 # gather-free stencil sampling inside the GN loop. See ops/warp.py for the
-# cost model: gather cost on TPU is per-INDEX, not per-element, so packing
+# design: one gather per level instead of per iteration, and packing
 # the 2x2 bilinear neighbourhood of all 7 term planes into one 28-channel
 # row costs the same as the old 3-channel nearest gather while producing
 # exactly the values the reference-exact path would bilinearly sample —
@@ -253,14 +252,12 @@ def _pack_quad_rows(term: dops.TermData) -> jax.Array:
     all-zero (invalid) dummy for out-of-bounds indices.
 
     bf16 halves the bytes of BOTH the pack's channel relayout and the
-    prewarp's 307k-row gather (measured: 4.5 -> 1.9 ms and 4.4 -> 1.8 ms
-    at 640x480 — the gather is byte-bound at these row widths). Depth is
-    the one channel whose bf16 quantisation (~8 mm at 2 m) would wreck the
-    geometric residual, so it travels as an exact hi+lo bf16 pair
-    (reconstruction error ~2^-16 relative, 0.03 mm at 2 m — the same trick
-    as ops/tsdf_pallas.py's image packing). Gradients and gray tolerate
-    bf16's ~0.4% relative error: they only steer GN, and the bench ATE is
-    unchanged at 1.0 mm.
+    prewarp's 307k-row gather (the gather is byte-bound at these row
+    widths). Depth is the one channel whose bf16 quantisation (~8 mm at
+    2 m) would wreck the geometric residual, so it travels as an exact
+    hi+lo bf16 pair (reconstruction error ~2^-16 relative, 0.03 mm at
+    2 m). Gradients and gray tolerate bf16's ~0.4% relative error: they
+    only steer GN, and the bench ATE is unchanged at 1.0 mm.
     """
     h, w = term.gray.shape
     d = term.depth
@@ -340,8 +337,8 @@ def _track_level_direct(
     stencil's tent weights ARE bilinear interpolation), valid whenever the
     per-pixel displacement uv(x) - x stays within radius-1 pixels — true at
     the finest level once the coarser levels have converged the pose. It
-    skips the quad-row pack (+3.4 ms of 28-channel relayout) and the
-    307k-row prewarp gather (+4.4 ms of per-index cost) entirely, and
+    skips the quad-row pack (a 28-channel relayout) and the 307k-row
+    prewarp gather entirely, and
     needs no warp-Jacobian correction (the sampling map is the identity).
     Pixels whose displacement exceeds the stencil drop out of the normal
     equations (graceful: the coarser levels' pose survives).
@@ -561,7 +558,7 @@ def dense_tracking(
     polish: int = 0,
     direct_fine: bool = False,
 ) -> DenseTrackingResult:
-    """TPU-fast multi-scale dense tracking (bilinear pre-warp + stencil).
+    """Production multi-scale dense tracking (bilinear pre-warp + stencil).
 
     Per level: ONE quad-packed row gather bilinearly rebases the target's
     term planes (gray/dx/dy/depth/zdx/zdy, target-space Sobel) onto the
@@ -576,7 +573,7 @@ def dense_tracking(
     fresh pre-warp at the converged pose plus `polish` extra stencil
     iterations (radius 2). With the bilinear pre-warp the level-entry
     samples are already exact, so polish is off by default (it buys <0.1 mm
-    ATE on the bench sequence for ~4 ms/pair); enable it for large-motion
+    ATE on the bench sequence for an extra stencil pass); enable it for large-motion
     pairs where the finest-level entry pose is far from the solution.
     """
     levels = len(source.grays)

@@ -9,7 +9,7 @@ OpenCV's learned bit_pattern_31_, the 256 BRIEF point pairs are drawn once
 from a seeded Gaussian (the original BRIEF recipe) — self-consistent and
 copyright-clean.
 
-Design notes (TPU-first):
+Design notes (device-first):
   - FAST's 16-pixel Bresenham circle test uses 16 static `jnp.roll`s of the
     whole image — no gathers; the >=9-contiguous-arc test is a rolling-window
     sum over a 16-bit ring.
@@ -134,7 +134,7 @@ _KY = (_ys * _disk).astype(np.float32)
 def _build_brief_selector() -> np.ndarray:
     """(P*P, NUM_ANGLE_BINS * 512) one-hot: column (b*512 + s) reads the
     patch pixel of BRIEF tap s rotated by angle bin b. Lets the steered
-    sampling run as ONE patch x selector matmul on the MXU instead of
+    sampling run as ONE patch x selector matmul instead of
     512 data-dependent gathers per keypoint."""
     sel = np.zeros((NUM_ANGLE_BINS, BRIEF_BITS * 2, _P * _P), np.float32)
     for b in range(NUM_ANGLE_BINS):
@@ -162,8 +162,8 @@ _BRIEF_SELECTOR_M = np.concatenate(
 # so fold the subtraction into the selector (columns halve: 512 -> 256 per
 # bin) and the bit becomes sign(patch @ D). Entries are {-1, 0, +1} and the
 # moment masks are integers in [-15, 15], so with the patch quantised to
-# int8 the whole reduction runs EXACTLY on the int8 MXU path (2x bf16
-# throughput, and int32 accumulation makes the bit sign deterministic).
+# int8 the whole reduction runs EXACTLY as an int8 x int8 -> int32 matmul
+# (int32 accumulation makes the bit sign deterministic).
 _BRIEF_DIFF_M = np.concatenate(
     [
         (_BRIEF_SELECTOR.reshape(_P * _P, NUM_ANGLE_BINS, BRIEF_BITS, 2)[..., 1]
@@ -179,8 +179,7 @@ _BRIEF_DIFF_M = np.concatenate(
 def _gather_patches(img: jax.Array, sx: jax.Array, sy: jax.Array) -> jax.Array:
     """(K,) int keypoint coords -> (K, 31, 31) patches. 31 row-gathers.
 
-    Gather cost on TPU is per-INDEX (see odometry/dense.py's pre-warp):
-    packing each pixel's 31-wide x-window into row channels turns the
+    Packing each pixel's 31-wide x-window into row channels turns the
     patch extraction into 31 gathers of K indices (31K total) instead of
     K*961 scalar gathers.
     """
@@ -233,12 +232,19 @@ def detect_and_describe(
     return Keypoints(uv, score, angle, packed, valid)
 
 
+def _quantize_i8(x: jax.Array) -> jax.Array:
+    """[0, 1] intensities -> int8 in 0..127. Clipped before the cast:
+    out-of-range float->int8 conversion is platform-defined, and every
+    backend must produce the same descriptor bits."""
+    return jnp.clip(jnp.round(x * 127.0), -128.0, 127.0).astype(jnp.int8)
+
+
 def _describe_patches(patches: jax.Array) -> tuple[jax.Array, jax.Array]:
     """(N, 31, 31) patches -> (angle (N,), packed descriptors (N, 8)).
 
     Steered BRIEF + orientation moments: the patch is quantised to int8
     (7 bits of the 8-bit source image — descriptor bits are sign tests of
-    tap differences, robust to 1-LSB quantisation) and ONE int8 MXU matmul
+    tap differences, robust to 1-LSB quantisation) and ONE int8 matmul
     against the {-1,0,1} difference selector produces every bin's 256 tap
     differences AND m10/m01 (the two trailing columns), all in exact int32
     arithmetic. A one-hot bin select then picks each keypoint's quantised
@@ -247,9 +253,7 @@ def _describe_patches(patches: jax.Array) -> tuple[jax.Array, jax.Array]:
     if patches.dtype == jnp.int8:  # batch path: quantised before the gather
         pq = patches.reshape(-1, _P * _P)
     else:
-        pq = jnp.round(
-            patches.reshape(-1, _P * _P).astype(jnp.float32) * 127.0
-        ).astype(jnp.int8)
+        pq = _quantize_i8(patches.reshape(-1, _P * _P).astype(jnp.float32))
     allred = jax.lax.dot_general(
         pq,
         jnp.asarray(_BRIEF_DIFF_M),
@@ -294,20 +298,19 @@ def _gather_patches_batch(imgs: jax.Array, sx: jax.Array, sy: jax.Array) -> jax.
 
     Same rows trick as `_gather_patches`, but the row table is built for the
     whole chunk and indexed with GLOBAL flat indices (frame*H*W + v*W + u):
-    one table, 31 gathers of B*K indices — never a vmapped (batched) gather,
-    which lowers ~20x slower on TPU. Two further TPU layout tricks:
-      - the table is int8 (the descriptor path is an exact int8 MXU matmul,
+    one table, 31 gathers of B*K indices — never a vmapped (batched)
+    gather. Two further layout tricks:
+      - the table is int8 (the descriptor path is an exact int8 matmul,
         so quantising BEFORE the gather moves 4x fewer bytes), and
-      - four consecutive pixels' windows share one 124-lane table row
-        (a bare (N, 31) table pads 31 -> 128 lanes, wasting 4x the HBM
-        footprint AND bandwidth; packed x4 the tile is full). The right
+      - four consecutive pixels' windows share one 124-wide table row
+        (ROADMAP S4 asks whether this packing still pays off). The right
         31-lane block is peeled off afterwards with a 4-wide one-hot
         einsum — W is a multiple of 4, so the block id is sx % 4 for
         every row of a keypoint's patch.
     """
     b, h, w = imgs.shape
     r = PATCH_RADIUS
-    q = jnp.round(imgs * 127.0).astype(jnp.int8)
+    q = _quantize_i8(imgs)
     padded = jnp.pad(q, ((0, 0), (0, 0), (r, r)))
     rows4 = jnp.stack(
         [padded[:, :, i : i + w] for i in range(_P)], axis=-1
@@ -337,7 +340,7 @@ def detect_and_describe_batch(
     small-kernel launches PER FRAME. Batching makes each op B-fold larger
     at the same launch count. All keypoint gathers use global flat indices
     into chunk-wide tables (see `_gather_patches_batch`); nothing here is
-    a vmapped gather or top_k (both lower poorly on TPU).
+    a vmapped gather.
     """
     b, h, w = grays.shape
     resp = _fast_response(grays, threshold)
@@ -345,13 +348,13 @@ def detect_and_describe_batch(
     vmask = jnp.zeros((h, w), bool).at[border : h - border, border : w - border].set(True)
     resp = jnp.where(vmask[None], resp, 0.0)
     # materialise: the 16-roll FAST fusion is otherwise duplicated into
-    # every NMS read of `resp` (measured 2x the whole detector's cost)
+    # every NMS read of `resp`
     resp = jax.lax.optimization_barrier(resp)
     resp = _nms(resp, nms_radius)
 
-    # approx_max_k is the TPU-native top-k (tiled partial reduction): 8x
-    # faster than lax.top_k at (16, 307200) and ~0.95 recall — FAST corners
-    # are heavily redundant, so a 5% different corner subset is noise
+    # approx_max_k: on the GPU and the CPU it lowers to the exact top-k;
+    # only backends with an approximate top-k use its ~0.95 recall target
+    # (FAST corners are heavily redundant, so that would be noise)
     score, idx = jax.lax.approx_max_k(resp.reshape(b, h * w), max_keypoints)  # (B, K)
     vy = (idx // w).astype(jnp.float32)
     vx = (idx % w).astype(jnp.float32)

@@ -1,6 +1,6 @@
 """Sparse feature-based RGB-D odometry.
 
-TPU redesign of `Odometry::SparseTracking(MILD)` (ref:
+Device redesign of `Odometry::SparseTracking(MILD)` (ref:
 src/Odometry/Odometry.cpp:91-168 (BF), :170-252 / :351-435 (MILD variant)):
 detect ORB-style features, match descriptors (exhaustive hamming replaces
 MILD's multi-index hash), filter outliers (validity / pairwise-consistency
@@ -174,9 +174,9 @@ class TrackingSummary(NamedTuple):
     """Scalar-only tracking summary: ONE small host fetch per frame.
 
     The per-frame host loop (systems/fbaslam.py) previously fetched
-    T_ts/success/corr arrays in 4-5 separate blocking transfers; on a
-    remote-attached chip each blocking round trip costs ~35 ms, capping the
-    sparse pipeline at <1 fps regardless of kernel speed. Everything the
+    T_ts/success/corr arrays in 4-5 separate blocking transfers, each a
+    host round trip that caps the sparse pipeline regardless of kernel
+    speed. Everything the
     keyframe decision needs (including the reference's average-disparity
     trigger, ref: Correspondence.h:22-40) is computed on device and fetched
     as one tiny pytree; the full correspondence arrays are fetched only
@@ -239,8 +239,8 @@ def sparse_chunk_scan(
     The reference's FBAFusion frame loop (ref: FBASlam.cpp:5-139) is
     sequential host control flow: track vs the last keyframe, promote on
     disparity >= threshold, repeat — every step needs the previous step's
-    decision. A per-frame host round trip costs ~50 ms on a remote-attached
-    chip, capping the loop at <20 fps regardless of kernel speed. Here the
+    decision. A per-frame host round trip caps the loop regardless of
+    kernel speed. Here the
     WHOLE loop runs on device as a `lax.scan` whose carry is the current
     keyframe (frame pytree + pose): promotion is a `where`-select of the
     carry, so the chunk needs ONE dispatch and one summary fetch. Failed
@@ -333,8 +333,7 @@ def extract_sparse_frames_batch(
     Built on `features.detect_and_describe_batch`: every detector stage is
     one B-fold-larger op (the sequential lax.map path paid ~60 small-kernel
     launches per frame), and all keypoint lookups are single flat gathers
-    with global frame*H*W indices — NOT vmapped gathers, which lower ~20x
-    slower on TPU (68 ms/frame vs 3 ms measured at 640x480).
+    with global frame*H*W indices — NOT vmapped (batched) gathers.
     """
     b, h, w = grays.shape
     kp = feat.detect_and_describe_batch(

@@ -1,6 +1,6 @@
 """Dense direct RGB-D odometry: residual/Jacobian/normal-equation ops.
 
-TPU redesign of the reference's Steinbruecker/Park-style dense alignment
+Device redesign of the reference's Steinbruecker/Park-style dense alignment
 (ref: src/Odometry/DenseOdometryFunction.cpp). The reference *forward-warps*
 source pixels into the target with a z-buffered scatter
 (`ComputeCorrespondencePixelWise`, :72-128) then accumulates per-pixel 6x6

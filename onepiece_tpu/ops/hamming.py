@@ -1,10 +1,10 @@
 """Binary-descriptor (256-bit) Hamming matching as batched XOR+popcount.
 
-TPU redesign of MILD's multi-index hashing matcher (ref:
+Device redesign of MILD's multi-index hashing matcher (ref:
 3rdparty/MILD/sparse_match.cpp:228-290 `train_8`/`search_8`,
 3rdparty/MILD/loop_closure_detector.cpp:134-145
 `calculate_hamming_distance_256bit`). Hash buckets exist to prune candidates
-on a scalar CPU; on TPU the exhaustive N x M distance table is one
+on a scalar CPU; on device the exhaustive N x M distance table is one
 vectorised XOR + `lax.population_count` pass — exact, and faster than any
 pruning at the reference's scales (~1000 features/frame, a few thousand
 keyframes).
@@ -26,7 +26,7 @@ def bit_signs(desc: jax.Array) -> jax.Array:
     """(..., 8) uint32 -> (..., 256) bf16 in {+1, -1} (bit=1 -> -1).
 
     Hamming distance between 256-bit strings is (256 - s_a . s_b) / 2 for
-    their +-1 sign vectors: one bf16 matmul on the MXU replaces the
+    their +-1 sign vectors: one bf16 matmul replaces the
     XOR+popcount broadcast, which lowers to slow elementwise passes over a
     (N, M, 8) intermediate. EXACT: products are +-1 and the f32 accumulator
     holds integer sums up to 256.
@@ -39,7 +39,7 @@ def bit_signs(desc: jax.Array) -> jax.Array:
 
 
 def hamming_table(a: jax.Array, b: jax.Array) -> jax.Array:
-    """(N, 8) x (M, 8) uint32 -> (N, M) int32 hamming distances (MXU)."""
+    """(N, 8) x (M, 8) uint32 -> (N, M) int32 hamming distances (one matmul)."""
     sa = bit_signs(a)
     sb = bit_signs(b)
     dot = jax.lax.dot_general(

@@ -1,6 +1,6 @@
 """Image-processing ops for the dense-odometry front end.
 
-TPU-native replacement of the OpenCV calls in ref:
+Device replacement of the OpenCV calls in ref:
 src/Tool/ImageProcessing.{h,cpp} — pyramids (`CreatePyramid`, :6), Sobel
 (`SobelFiltering`, :25), Gaussian (`GaussianFiltering`, :43), bilateral
 (`BilateralFilter`, :64) — as jitted depthwise convolutions / stencils. All
@@ -27,9 +27,9 @@ def _conv2d_same(img: jax.Array, kernel) -> jax.Array:
     `kernel` must be a concrete numpy array (taps unroll at trace time).
 
     Implemented as a static-slice stencil (pad once, FMA over taps) rather
-    than conv_general_dilated: XLA's TPU conv path wastes the 128-lane unit
-    on single-channel images, while the slice stencil fuses into one
-    full-lane VPU pass.
+    than conv_general_dilated: single-channel images waste a convolution
+    unit's channel width, while the slice stencil fuses into one
+    elementwise pass.
     """
     k_np = np.asarray(kernel)
     kh, kw = k_np.shape
@@ -139,9 +139,9 @@ def bilateral_filter(
     """Edge-preserving depth smoothing (ref: ImageProcessing.cpp:64).
 
     Fixed-window stencil: each of the (2r+1)^2 taps is a static SLICE of the
-    zero-padded image (XLA fuses the whole FMA chain into one VPU pass — a
-    jnp.roll formulation materialises a concatenate per tap and costs ~3 ms
-    at 640x480 on v5e), weighted by spatial Gaussian x value Gaussian,
+    zero-padded image (XLA fuses the whole FMA chain into one pass — a
+    jnp.roll formulation materialises a concatenate per tap), weighted by
+    spatial Gaussian x value Gaussian,
     skipping invalid (0) depths. This is the pre-integration filter
     (ref: example/DenseFusion/DenseFusion.cpp bilateral before
     IntegrateImage).

@@ -1,12 +1,16 @@
-"""Nearest-neighbor search as batched matmuls.
+"""Exact nearest-neighbor search by brute force.
 
-TPU-native replacement for the reference's nanoflann KD-tree
-(ref: src/Geometry/KDTree.h:62-365). A KD-tree is pointer-chasing — the worst
-possible shape for a systolic array. At the reference's problem sizes
-(640x480 frames, submap clouds of 1e4-1e5 points, feature dim 3 or 33) an
-exhaustive tiled distance computation rides the MXU at full tilt and is both
-exact and faster. Distances use the  |a-b|^2 = |a|^2 + |b|^2 - 2 a.b  trick so
-the inner loop is one matmul.
+Replacement for the reference's nanoflann KD-tree
+(ref: src/Geometry/KDTree.h:62-365). A KD-tree is pointer-chasing; at the
+reference's problem sizes (640x480 frames, submap clouds of 1e4-1e5 points,
+feature dim 3 or 33) an exhaustive tiled distance computation is exact and
+maps onto wide elementwise device code.
+
+Distances are summed coordinate by coordinate, never expanded as
+|a|^2 + |b|^2 - 2 a.b: for points ~4 m from the origin that form cancels
+~16 m^2 terms down to ~1e-4 m^2 distances, so f32 rounding (~4e-6 m^2)
+reorders neighbors 1 cm apart. The direct form is pure elementwise work, so
+XLA fuses it into the argmin and never writes the (tile, M) block for k=1.
 """
 
 from __future__ import annotations
@@ -16,28 +20,17 @@ import functools
 import jax
 import jax.numpy as jnp
 
-NEG_LARGE = -1e30
 LARGE = 1e30
 
 
-def pairwise_sqdist(
-    query: jax.Array, ref: jax.Array, precision=jax.lax.Precision.HIGH
-) -> jax.Array:
-    """Squared L2 distances (N, D) x (M, D) -> (N, M) via one MXU matmul.
-
-    The package pins the global matmul default to HIGHEST (6-pass bf16) to
-    protect geometry math, but NN SELECTION only needs distances ranked
-    correctly: HIGH (3-pass bf16, ~19-bit mantissa, 2x the throughput)
-    leaves micrometer-scale distance error at scene scale — far below the
-    point spacing that decides a neighbor. Pass HIGHEST explicitly where
-    exact distances matter.
-    """
-    qq = jnp.sum(query * query, axis=-1, keepdims=True)
-    rr = jnp.sum(ref * ref, axis=-1)
-    cross = jnp.dot(
-        query, ref.T, preferred_element_type=jnp.float32, precision=precision
-    )
-    return jnp.maximum(qq + rr[None, :] - 2.0 * cross, 0.0)
+def pairwise_sqdist(query: jax.Array, ref: jax.Array) -> jax.Array:
+    """Squared L2 distances (N, D) x (M, D) -> (N, M), exact to f32 rounding
+    of each distance (see the module docstring for why not a matmul)."""
+    d = jnp.zeros((query.shape[0], ref.shape[0]), jnp.float32)
+    for j in range(query.shape[-1]):
+        diff = query[:, None, j] - ref[None, :, j]
+        d = d + diff * diff
+    return d
 
 
 @functools.partial(jax.jit, static_argnames=("k", "tile"))
@@ -50,21 +43,22 @@ def knn(
 ) -> tuple[jax.Array, jax.Array]:
     """Exact k-NN: returns (indices (N, k), sqdists (N, k)).
 
-    Invalid reference points (mask False) never match. Query rows are tiled
-    with lax.map so the (tile, M) distance block stays VMEM-friendly while M
-    can be large.
+    Invalid reference points (mask False) never match; a query with no
+    valid reference gets distance LARGE. Query rows are tiled with lax.map
+    so the (tile, M) distance block stays bounded while M can be large.
     """
     n = query.shape[0]
     pad = (-n) % tile
     qp = jnp.pad(query, ((0, pad), (0, 0)))
-    rbig = jnp.where(ref_valid[:, None], ref, LARGE)
 
     def one_tile(qt):
-        d = pairwise_sqdist(qt, rbig)
-        d = jnp.where(ref_valid[None, :], d, LARGE)
+        d = jnp.where(ref_valid[None, :], pairwise_sqdist(qt, ref), LARGE)
         if k == 1:
             idx = jnp.argmin(d, axis=-1)
-            return idx[:, None], jnp.take_along_axis(d, idx[:, None], axis=-1)
+            # recompute the winner's distance: keeps d a fusion-only value
+            diff = qt - ref[idx]
+            d1 = jnp.where(ref_valid[idx], jnp.sum(diff * diff, -1), LARGE)
+            return idx[:, None], d1[:, None]
         neg_d, idx = jax.lax.top_k(-d, k)
         return idx, -neg_d
 

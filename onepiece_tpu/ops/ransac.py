@@ -1,6 +1,6 @@
 """Batched-hypothesis RANSAC for rigid 3D-3D alignment and plane fitting.
 
-TPU redesign of the reference's sequential RANSAC engines — the GRANSAC
+Device redesign of the reference's sequential RANSAC engines — the GRANSAC
 template (ref: 3rdparty/GRANSAC/GRANSAC.hpp), `RANSAC3d`
 (ref: src/Odometry/SparseOdometryFunction.cpp:10-55, 8 samples x 400 iters
 with an inlier-ratio early exit) and `EstimateRigidTransformationRANSAC`

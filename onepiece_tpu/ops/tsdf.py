@@ -1,6 +1,6 @@
 """TSDF voxel-block integration ops.
 
-TPU redesign of the reference's per-cube projective TSDF update
+Array-first redesign of the reference's per-cube projective TSDF update
 (ref: src/Integration/Integrator.cpp:36-94 `IntegrateImage`,
 src/Integration/TSDFVoxel.h:8-82). The reference loops cubes on the host and
 voxels per cube; here ALL active blocks integrate in one device launch over
@@ -142,129 +142,6 @@ def touched_block_coords(
         coords.append(jnp.floor(pts_w / block_edge).astype(jnp.int32).reshape(-1, 3))
     k = len(offsets)
     return jnp.concatenate(coords), jnp.tile(valid.reshape(-1), (k,))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("voxel_size", "truncation", "max_weight", "rows", "cols", "chunk"),
-)
-def integrate_blocks_matmul(
-    sdf: jax.Array,  # (B, 512)
-    weight: jax.Array,
-    color: jax.Array,  # (B, 512, 3)
-    block_coords: jax.Array,  # (B, 3)
-    block_active: jax.Array,  # (B,)
-    depth: jax.Array,  # (H, W)
-    rgb: jax.Array,  # (H, W, 3)
-    T_cw: jax.Array,
-    fx: float, fy: float, cx: float, cy: float,
-    voxel_size: float,
-    truncation: float,
-    max_weight: float = 100.0,
-    rows: int = 128,
-    cols: int = 128,
-    chunk: int = 64,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """TSDF update with image lookups as one-hot matmuls (MXU path).
-
-    XLA gathers cost ~7ns/index serially on TPU, so the 2M per-voxel
-    depth/rgb lookups of `integrate_blocks` dominate the frame. This
-    formulation exploits block locality: each block's 512 voxels project
-    into a narrow row band of the image. Per block we dynamic-slice a
-    (rows, W) window (contiguous — cheap), then select each voxel's pixel
-    with two one-hot contractions:
-
-        val[v, k] = sum_r sum_c rowsel[v, r] * win[r, c, k] * colsel[v, c]
-
-    — pure MXU/VPU work, no scatter/gather in the inner loop. Blocks whose
-    projected row span exceeds `rows` (very close to the camera) fall
-    outside the window and those voxels are masked (they re-enter on later
-    frames; at the default MIN_DEPTH of 0.5 m a block spans < 128 rows).
-    Numerics match integrate_blocks (nearest-pixel, same update rule).
-    """
-    h, w = depth.shape
-    rows = min(rows, h)
-    cols = min(cols, w)
-    b = sdf.shape[0]
-    img = jnp.concatenate([depth[..., None], rgb], axis=-1)  # (H, W, 4)
-
-    def do_chunk(args):
-        sdf_c, w_c, col_c, bc_c, act_c = args
-        c = bc_c.shape[0]
-        pts_w = voxel_centers_world(bc_c, voxel_size)  # (C, 512, 3)
-        R = T_cw[:3, :3]
-        t = T_cw[:3, 3]
-        pc = jnp.einsum("ij,cnj->cni", R, pts_w) + t
-        z = pc[..., 2]
-        zsafe = jnp.where(z > 1e-6, z, 1.0)
-        ui = jnp.round(pc[..., 0] / zsafe * fx + cx).astype(jnp.int32)  # (C, 512)
-        vi = jnp.round(pc[..., 1] / zsafe * fy + cy).astype(jnp.int32)
-        inb = (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h) & (z > 1e-6)
-
-        # per-block 2D window start (rows x cols); blocks whose projection
-        # spans beyond the window (camera closer than ~0.7 m at TUM
-        # intrinsics) have the overflow voxels masked this frame.
-        vi_valid = jnp.where(inb, vi, h)
-        ui_valid = jnp.where(inb, ui, w)
-        r0 = jnp.clip(jnp.min(vi_valid, axis=1), 0, max(h - rows, 0))  # (C,)
-        c0 = jnp.clip(jnp.min(ui_valid, axis=1), 0, max(w - cols, 0))
-        win = jax.vmap(
-            lambda rs, cs: jax.lax.dynamic_slice(img, (rs, cs, 0), (rows, cols, 4))
-        )(r0, c0)  # (C, rows, cols, 4)
-
-        rrel = vi - r0[:, None]  # (C, 512)
-        crel = ui - c0[:, None]
-        in_win = inb & (rrel >= 0) & (rrel < rows) & (crel >= 0) & (crel < cols)
-        row_ids = jax.lax.broadcasted_iota(jnp.int32, (1, 1, rows), 2)
-        rowsel = (rrel[..., None] == row_ids).astype(jnp.float32)  # (C, 512, rows)
-        col_ids = jax.lax.broadcasted_iota(jnp.int32, (1, 1, cols), 2)
-        colsel = (jnp.clip(crel, 0, cols - 1)[..., None] == col_ids).astype(jnp.float32)
-
-        # two-step contraction, MXU-shaped; intermediate is (C, 512, cols, 4)
-        mid = jnp.einsum(
-            "cvr,crwk->cvwk", rowsel, win, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT,
-        )
-        vals = jnp.einsum("cvwk,cvw->cvk", mid, colsel)  # (C, 512, 4)
-        d_px = vals[..., 0]
-        c_px = vals[..., 1:]
-
-        sdf_m = d_px - z
-        upd = in_win & (d_px > 0) & (sdf_m > -truncation) & act_c[:, None]
-        tsdf_new = jnp.clip(sdf_m / truncation, -1.0, 1.0)
-        w_old = w_c
-        w_new = jnp.where(upd, jnp.minimum(w_old + 1.0, max_weight), w_old)
-        sdf_safe = jnp.where(w_old > 0, sdf_c, 0.0)
-        sdf_out = jnp.where(
-            upd, (sdf_safe * w_old + tsdf_new) / jnp.clip(w_old + 1.0, 1.0, None), sdf_c
-        )
-        c_safe = jnp.where(w_old[..., None] > 0, col_c, 0.0)
-        c_out = jnp.where(
-            upd[..., None],
-            (c_safe * w_old[..., None] + c_px) / jnp.clip(w_old[..., None] + 1.0, 1.0, None),
-            col_c,
-        )
-        return sdf_out, w_new, c_out
-
-    pad = (-b) % chunk
-    def padc(x):
-        cfg = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
-        return jnp.pad(x, cfg)
-
-    args = (
-        padc(sdf).reshape(-1, chunk, 512),
-        padc(weight).reshape(-1, chunk, 512),
-        padc(color).reshape(-1, chunk, 512, 3),
-        padc(block_coords).reshape(-1, chunk, 3),
-        padc(block_active).reshape(-1, chunk),
-    )
-    sdf_o, w_o, c_o = jax.lax.map(do_chunk, args)
-    n = b + pad
-    return (
-        sdf_o.reshape(n, 512)[:b],
-        w_o.reshape(n, 512)[:b],
-        c_o.reshape(n, 512, 3)[:b],
-    )
 
 
 INVALID_KEY = jnp.int32((1 << 30))

@@ -1,9 +1,8 @@
-"""Image warping primitives tuned to TPU memory behaviour.
+"""Image warping primitives for the dense tracker.
 
-Measured on TPU v5e: an XLA gather costs ~7 ns *per index* regardless of
-slice width (it is a serial index loop), so a 640x480 bilinear warp is
-~4-16 ms — unusable inside the 28-iteration dense-tracking loop, but fine
-once per frame. The dense tracker therefore:
+A data-dependent bilinear gather over a 640x480 image is far costlier than
+static-slice stencil arithmetic, so it is kept out of the 28-iteration
+dense-tracking loop and done once per frame. The dense tracker therefore:
 
   1. pre-warps the target once per frame by the *initial* pose guess with a
      single stacked gather (`warp_stack`) — odometry motion is smooth, so

@@ -1,6 +1,6 @@
 """Full bundle adjustment: poses + world points, LM with Schur complement.
 
-TPU redesign of `BundleAdjustment` (ref: src/Optimization/BundleAdjustment.cpp:60-289).
+Device redesign of `BundleAdjustment` (ref: src/Optimization/BundleAdjustment.cpp:60-289).
 The reference assembles sparse U/V/W triplets in a scalar loop over
 observations, inverts 3x3 point blocks, forms the reduced camera system with
 Eigen block products, and solves with SimplicialLDLT. Here:
@@ -116,10 +116,10 @@ def ba_step(
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """One damped step: returns (new_poses, new_points, predicted_ok).
 
-    Schur complement as ONE dense matmul (the TPU-native formulation):
+    Schur complement as ONE dense matmul (the array-first formulation):
     the block-sparse cross term W (6F x 3P, one 6x3 block per observation)
     is scatter-assembled dense, the point-block inverse is applied as a
-    batched (P, 3, 3) einsum, and S = U_diag - (W V^-1) W^T hits the MXU
+    batched (P, 3, 3) einsum, and S = U_diag - (W V^-1) W^T is one large matmul
     as a (6F, 3P) x (3P, 6F) contraction. This removes the r3 path's
     (P, Omax, Omax, 6, 6) pair tensor (7+ GB at P=20k, Omax=50) — memory
     is now 2 * 6F * 3P floats (288 MB at the F=200/P=20k/O=100k target
@@ -158,7 +158,7 @@ def ba_step(
     Y = jnp.einsum("fipk,pkl->fipl", Wd, Vinv)  # W V^-1, (F, 6, P, 3)
     Ym = Y.reshape(F * 6, P * 3)
     Wm = Wd.reshape(F * 6, P * 3)
-    S = -Ym @ Wm.T  # (6F, 6F) — the MXU does the pair reduction
+    S = -Ym @ Wm.T  # (6F, 6F) — one matmul does the pair reduction
     fi = jnp.arange(F * 6).reshape(F, 6)
     S = S.at[fi[:, :, None], fi[:, None, :]].add(U)
     rhs_c = b_c.reshape(F * 6) - Ym @ b_p.reshape(P * 3)

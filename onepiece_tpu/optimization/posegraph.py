@@ -1,6 +1,6 @@
 """Pose-graph Gauss-Newton over 3D-3D correspondence edges ("FastBA").
 
-TPU redesign of `SimpleBA` (ref: src/Optimization/SimpleBA.{h,cpp}): the
+Device redesign of `SimpleBA` (ref: src/Optimization/SimpleBA.{h,cpp}): the
 reference loops edges and correspondences, assembling a sparse 6Nx6N system
 with Eigen triplets and SimplicialLDLT (ref: SimpleBA.cpp:18-156). Here all
 edge contributions are computed with one vmap and scatter-added into a dense

@@ -3,7 +3,7 @@
 This is the BASELINE.json collective: observations are sharded across
 devices BY POINT (every observation of a point lives with its point), each
 device builds its local U/S/rhs contributions, and one `psum` reduces the
-6Fx6F camera system — the TPU-native replacement for the reference's
+6Fx6F camera system — the device replacement for the reference's
 single-threaded sparse assembly (ref: src/Optimization/BundleAdjustment.cpp:
 130-234). The reduced solve is tiny and runs replicated on every device
 (single-controller pattern: identical systems, identical solutions, no
@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..geometry import se3
 
@@ -85,7 +85,7 @@ def _local_schur(poses, points_sh, frame_pp, uv_pp, mask_pp, lam, fx, fy, cx, cy
     Vinv = jnp.linalg.inv(V)
     # Schur cross term as one dense matmul per shard (same formulation as
     # optimization/bundle.py ba_step): assemble the shard's block-sparse W
-    # as (6F, 3Ps) dense and let the MXU do the pair reduction — the old
+    # as (6F, 3Ps) dense and let one matmul do the pair reduction — the old
     # (Ps, Omax, Omax, 6, 6) pair tensor was the scaling bomb.
     ps = W.shape[0]
     Wd = jnp.zeros((F, 6, ps, 3)).at[
@@ -122,7 +122,7 @@ def distributed_ba_step(
         mesh=mesh,
         in_specs=(P(), P(axis), P(axis), P(axis), P(axis)),
         out_specs=(P(), P(axis), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def step(poses_r, pts_sh, f_sh, uv_sh, m_sh):
         U, S_sub, b_c, rhs_sub, Vinv, Wm, b_p, cost = _local_schur(

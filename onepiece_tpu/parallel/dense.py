@@ -1,10 +1,11 @@
 """Pixel-sharded dense odometry over a device mesh.
 
 The reference's per-frame hot loop is single-threaded C++ (SURVEY §2.10); the
-TPU-native scaling axis for it is pixel data-parallelism: source pixels are
+device scaling axis for it is pixel data-parallelism: source pixels are
 sharded over the mesh's data axis, every device computes the 6x6 partial
 normal equations for its shard, and one `psum` reduces them — the solve is
-6x6 and runs replicated. ICI carries 36+6 floats per iteration: negligible.
+6x6 and runs replicated. The interconnect carries 36+6 floats per iteration:
+negligible.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..geometry import se3
 from ..geometry.camera import PinholeCamera
@@ -63,7 +64,7 @@ def dense_tracking_sharded(
             mesh=mesh,
             in_specs=(P(), P(axis), P(axis), P(axis), P(None, None)),
             out_specs=(P(), P(), P(), P()),
-            check_rep=False,
+            check_vma=False,
         )
         def level_step(T0, pts, gray, valid, tgt_gray, _tgt=tgt, _cam=cam, _n=n_it):
             del tgt_gray  # TermData passed via closure (replicated)

@@ -11,7 +11,7 @@ per-frame integration collective-free: the only cross-device traffic is the
 (replicated) frame broadcast and, later, meshing halos.
 
 Layout: `vox_sh` is (n_dev, cap_local + 1, 5, 512) sharded on axis 0; each
-device's shard carries its own trash row, so the Pallas kernel runs
+device's shard carries its own trash row, so `tsdf_triton.integrate_slots` runs
 unmodified on the local shard.
 """
 
@@ -22,19 +22,20 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..geometry import se3
 from ..integration import device_hash as dh
+from ..integration.blocks import N_VOX, make_pool
 from ..ops import tsdf as tsdf_ops
-from ..ops import tsdf_pallas as tp
+from ..ops import tsdf_triton
 
 
 def make_sharded_pool(mesh: Mesh, cap_local: int, axis: str = "d") -> jax.Array:
     """(n_dev, cap_local+1, 5, 512) pool, sharded on the device axis."""
     n_dev = mesh.shape[axis]
-    vox = jnp.zeros((n_dev, cap_local + 1, 5, tp.N_VOX), jnp.float32)
+    vox = jnp.zeros((n_dev, cap_local + 1, 5, N_VOX), jnp.float32)
     vox = vox.at[:, :, 0, :].set(tsdf_ops.EMPTY_SDF)
     return jax.device_put(vox, NamedSharding(mesh, P(axis)))
 
@@ -68,7 +69,7 @@ def fused_tsdf_step_sharded(
         mesh=mesh,
         in_specs=(P(axis), P(), P(), P(), P()),
         out_specs=(P(axis), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def step(vox_l, table_r, depth_r, gray_r, T_r):
         vox_l = vox_l[0]  # (cap_local+1, 5, 512)
@@ -82,9 +83,8 @@ def fused_tsdf_step_sharded(
         local = jnp.where(
             (slots >= 0) & (local >= 0) & (local < cap_local), local, cap_local
         ).astype(jnp.int32)
-        img = jnp.stack([depth_r, gray_r])  # f32 path: kernel splits hi/lo in-window
-        vox_l = tp.integrate_slots_pallas(
-            vox_l, keys, local, img, se3.inverse_T(T_r),
+        vox_l = tsdf_triton.integrate_slots(
+            vox_l, keys, local, depth_r, gray_r[..., None], se3.inverse_T(T_r),
             fx, fy, cx, cy, voxel_size, truncation, interpret=interpret,
         )
         return vox_l[None], table2
@@ -102,7 +102,7 @@ def gather_pool(vox_sh: jax.Array) -> jax.Array:
     return jnp.asarray(out)
 
 
-def dryrun(mesh: Mesh, camera, axis: str = "d", interpret: bool = True) -> None:
+def dryrun(mesh: Mesh, camera, axis: str = "d", interpret: bool = False) -> None:
     """One synthetic frame through the sharded fused path; verify the
     gathered pool matches the single-device fused integration bit-exactly."""
     from ..utils import synthetic
@@ -126,18 +126,16 @@ def dryrun(mesh: Mesh, camera, axis: str = "d", interpret: bool = True) -> None:
     got = gather_pool(vox_sh)
 
     # single-device oracle
-    vox1 = tp.make_pool(cap_total)
+    vox1 = make_pool(cap_total)
     keys = tsdf_ops.touched_block_keys(
         depth, T_w, camera.fx, camera.fy, camera.cx, camera.cy,
         0.05, 0.2, max_blocks=1024, stride=4,
     )
     _, slots = dh.insert(dh.make_table(1 << 13, cap_total), keys)
     slots_safe = jnp.where(slots < 0, cap_total, slots).astype(jnp.int32)
-    img = jnp.stack([depth, gray])
-    vox1 = tp.integrate_slots_pallas(
-        vox1, keys, slots_safe, img, se3.inverse_T(T_w),
-        camera.fx, camera.fy, camera.cx, camera.cy, 0.05, 0.2,
-        interpret=interpret,
+    vox1 = tsdf_triton.integrate_slots(
+        vox1, keys, slots_safe, depth, gray[..., None], se3.inverse_T(T_w),
+        camera.fx, camera.fy, camera.cx, camera.cy, 0.05, 0.2, interpret=interpret,
     )
     a = np.asarray(got[:-1])
     b = np.asarray(vox1[:-1])

@@ -23,7 +23,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..geometry import se3
@@ -62,7 +62,7 @@ def _gn_step_sharded(
         mesh=mesh,
         in_specs=(P(),) + (P(axis),) * 6,
         out_specs=(P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def step(poses_r, src, dst, p_src, p_dst, valid, edge_valid):
         ev = edge_valid[:, None] & valid

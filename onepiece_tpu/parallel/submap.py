@@ -38,7 +38,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..geometry import se3
@@ -355,7 +355,7 @@ def submap_pipeline_sharded(
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def run(g_l, d_l, pg_l, pd_l, hp_l):
         g_l, d_l = g_l[0], d_l[0]
@@ -400,10 +400,11 @@ def submap_pipeline_sharded(
 
 
 def dryrun(mesh: Mesh, camera, axis: str = "d") -> None:
-    """One submap per device on tiny frames; validates that the sharded
-    pipeline (ppermute consecutive ICP + all_gather loop registration +
-    replicated pose-graph solve) compiles and runs on this mesh. Joins the
-    driver's dryrun_multichip so all five SURVEY scaling axes are covered."""
+    """One submap per device on tiny frames: the sharded pipeline
+    (ppermute consecutive ICP + all_gather loop registration + replicated
+    pose-graph solve) against the serial run of the same stages. Joins
+    `__graft_entry__.dryrun_multichip` so all five SURVEY scaling axes are
+    covered."""
     import jax.numpy as jnp
 
     from ..utils import synthetic
@@ -422,9 +423,16 @@ def dryrun(mesh: Mesh, camera, axis: str = "d") -> None:
         depths.append(np.asarray(d))
     grays = np.stack(grays).reshape(s, f, camera.height, camera.width)
     depths = np.stack(depths).reshape(s, f, camera.height, camera.width)
+    kw = dict(voxel_size=0.08, cloud_capacity=256)
     fp, base, edges, _geos, _braw = submap_pipeline_sharded(
-        grays, depths, camera, mesh, voxel_size=0.08, cloud_capacity=256,
-        axis=axis,
+        grays, depths, camera, mesh, axis=axis, **kw
     )
     assert np.isfinite(fp).all(), "sharded submap pipeline produced non-finite poses"
-    print("parallel.submap dryrun ok:", n_dev, "submaps")
+    # single-device run of the same stages; the chained odometry
+    # reassociates under the sharded body's fusion, hence the cm budget
+    # (tests/test_parallel.py bounds each stage separately)
+    fp_ser, _, edges_ser, _, _ = submap_pipeline_serial(grays, depths, camera, **kw)
+    assert np.array_equal(np.asarray(edges.valid), np.asarray(edges_ser.valid))
+    err = float(np.abs(fp - fp_ser).max())
+    assert err < 3e-2, f"sharded submap poses differ from single-device: {err}"
+    print(f"parallel.submap dryrun ok: {n_dev} submaps, max |pose diff| {err:.2e}")

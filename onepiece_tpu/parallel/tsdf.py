@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import tsdf as tsdf_ops
 
@@ -43,7 +43,7 @@ def integrate_blocks_sharded(
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P(), P(), P()),
         out_specs=(P(axis), P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     def step(sdf_s, w_s, c_s, bc_s, act_s, depth_r, rgb_r, T_r):
         return tsdf_ops.integrate_blocks(

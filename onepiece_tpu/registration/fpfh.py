@@ -1,11 +1,11 @@
 """FPFH 33-bin 3D features, fully batched.
 
-TPU redesign of `registration::FPFH` (ref: src/Registration/3DFeature.cpp:
+Device redesign of `registration::FPFH` (ref: src/Registration/3DFeature.cpp:
 `ComputePairDescriptor` :8-24, `ComputeSPFH` :27-81, `ComputeFPFHFeature`
 :83-131). The reference loops points and KD-tree neighbours; here neighbour
 sets come from the brute-force k-NN (radius-masked) and the Darboux-angle
 pair features + 11-bin histograms are one vmapped computation with one-hot
-reductions — no scatter conflicts, MXU-friendly shapes.
+reductions — no scatter conflicts, matmul-friendly shapes.
 """
 
 from __future__ import annotations

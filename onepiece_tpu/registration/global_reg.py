@@ -1,6 +1,6 @@
 """Global (feature-based) registration: FPFH match + batched RANSAC.
 
-TPU redesign of `registration::RansacRegistration`
+Device redesign of `registration::RansacRegistration`
 (ref: src/Registration/GlobalRegistration.cpp:121-266): downsample ->
 normals -> FPFH -> 1-NN feature match (33-dim KD-tree replaced by one
 distance matmul) -> RanSaPC rejection x3 (ref :76-109) -> rigid RANSAC

@@ -1,10 +1,10 @@
 """Iterative closest point: point-to-point and point-to-plane.
 
-TPU redesign of `registration::ICP` (ref: src/Registration/ICP.{h,cpp}).
+Device redesign of `registration::ICP` (ref: src/Registration/ICP.{h,cpp}).
 The reference parallelises its KD-tree NN queries with OpenMP
 (ref: ICP.cpp:64,184) and runs 30 sequential iterations of
-correspond -> estimate. Here the NN search is the brute-force MXU distance
-matmul (ops/knn.py), correspondence + estimation are fused into one jitted
+correspond -> estimate. Here the NN search is exact brute force
+(ops/knn.py), correspondence + estimation are fused into one jitted
 iteration, and the outer loop is a `lax.fori_loop` — the entire ICP runs as
 a single device program.
 
@@ -38,17 +38,8 @@ class ICPResult(NamedTuple):
 
 
 def _correspond(src_t: jax.Array, src_valid, tgt: jax.Array, tgt_valid, threshold):
-    if jax.default_backend() == "tpu":
-        # fused Pallas distance+argmin: the XLA path materialises the
-        # (N, M) distance matrix in HBM and is bound by that traffic
-        # (6.4 -> 2.5 ms/iter at 20k x 20k); see ops/knn_pallas.py
-        from ..ops import knn_pallas
-
-        idx, d2 = knn_pallas.nn1_pallas(src_t, tgt, tgt_valid)
-    else:
-        idx2, d22 = knn_ops.knn(src_t, tgt, tgt_valid, k=1)
-        idx = idx2[:, 0]
-        d2 = d22[:, 0]
+    idx, d2 = knn_ops.knn(src_t, tgt, tgt_valid, k=1)
+    idx, d2 = idx[:, 0], d2[:, 0]
     ok = src_valid & (d2 < threshold * threshold)
     return idx, d2, ok
 

@@ -1,6 +1,6 @@
 """BASlam: sparse keyframe SLAM with world-point tracks and full BA.
 
-TPU rebuild of the reference's BAFusion system (ref:
+Host-loop rebuild of the reference's BAFusion system (ref:
 example/BAFusion/BASlam.{h,cpp}): the same sparse front end as FBASlam, but
 matches are chained into world-point TRACKS (local->global index maps,
 ref BASlam.cpp:89-150), and optimisation is full bundle adjustment over

@@ -1,6 +1,6 @@
 """DenseSlam: dense frame-to-frame VO + submap registration + pose graph.
 
-TPU rebuild of the reference's DenseFusion system (ref:
+Device rebuild of the reference's DenseFusion system (ref:
 example/DenseFusion/DenseSlam.{h,cpp}, driver DenseFusion.cpp:9-112):
 
   per frame:
@@ -70,8 +70,7 @@ class DenseSlam:
             rmse = 0.0
         else:
             res = dense.dense_tracking(self.prev_pyramid, pyr, self.camera)
-            # ONE blocking transfer per frame (each costs ~50 ms on a
-            # remote-attached chip)
+            # ONE blocking transfer per frame
             T_ts, rmse = jax.device_get((res.T_ts, res.rmse))
             T_world = self.poses[-1] @ np.linalg.inv(T_ts)
             rmse = float(rmse)

@@ -1,6 +1,6 @@
 """Keyframe-based SLAM scaffolding.
 
-TPU rebuild of `tool::KeyframeBasedSlam` (ref: src/Tool/KeyframeBasedSlam.h:
+Device rebuild of `tool::KeyframeBasedSlam` (ref: src/Tool/KeyframeBasedSlam.h:
 15-61): owns the camera, per-frame global poses, keyframe bookkeeping, and
 the anchoring rule that re-bases non-keyframes on their keyframe after
 optimisation (`UpdateAllPoses`, ref: :36-45).

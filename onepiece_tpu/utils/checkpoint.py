@@ -76,7 +76,7 @@ def load_dense(path: str, camera):
     """Restore a FusedDenseFusion; continues exactly where it left off."""
     from ..systems.fused_slam import FusedDenseFusion, FusedState
     from ..integration import device_hash as dh
-    from ..ops import tsdf_pallas as tp
+    from ..integration.blocks import make_pool
     from ..odometry import dense
 
     z = np.load(path, allow_pickle=False)
@@ -101,7 +101,7 @@ def load_dense(path: str, camera):
     template = FusedState(
         pyr=pyr, T_w=eye, rel=eye,
         table=dh.make_table(meta["table_size"], meta["capacity"]),
-        vox=tp.make_pool(meta["capacity"]),
+        vox=make_pool(meta["capacity"]),
     )
     slam._state = _unflatten_state(template, z)
     slam.frame_count = meta["frame_count"]

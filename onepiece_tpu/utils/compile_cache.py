@@ -1,33 +1,37 @@
 """Persistent XLA compile-cache wiring.
 
-The reference pays zero compile cost (ahead-of-time C++); the TPU build
-pays it on every fresh process. JAX's persistent compilation cache
-removes that cost for every executable already seen by *any* prior run on
-this machine — measured on this host it turns a 14.5 s cold jit into a
-0.55 s cache hit (CPU backend) and similarly amortises the 20-40 s TPU
-compiles of the big scan executables.
+The reference pays no compile cost (ahead-of-time C++); this package pays
+it in every fresh process. JAX's persistent compilation cache removes it
+for every executable an earlier run with the same cache directory has
+already compiled.
 
-Call `enable()` before the first jit. Used by tests/conftest.py, bench.py
-and every CLI tool (via tools/_common.py).
+Call `enable()` before the first jit. It is the package's only setter of
+the cache directory: tests/conftest.py, bench.py, chip_smoke.py and the CLI
+tools (via tools/_common.py) call it.
 """
 
 from __future__ import annotations
 
 import os
 
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+CHECKOUT_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-def enable(cache_dir: str | None = None) -> str:
-    """Enable the persistent compile cache (idempotent). Returns the dir."""
+
+def enable() -> str:
+    """Enable the persistent compile cache (idempotent). Returns the dir.
+
+    Where `JAX_COMPILATION_CACHE_DIR` is set, JAX reads it itself and no
+    other directory is set here. Otherwise the cache lives at the fixed
+    path `<checkout>/.jax_cache` (listed in .gitignore): the path is part of
+    the cache key, so a directory that moved would never hit.
+    """
     import jax
 
-    if cache_dir is None:
-        cache_dir = os.environ.get(
-            "ONEPIECE_COMPILE_CACHE",
-            os.path.join(
-                os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-                ".jax_cache",
-            ),
-        )
+    cache_dir = os.environ.get(ENV_VAR) or CHECKOUT_CACHE
     os.makedirs(cache_dir, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     # cache everything: even sub-second executables add up across the suite

@@ -24,7 +24,7 @@ class DenseOdometryConfig:
     depth_diff_max: float = 0.07  # depth-consistency gate (z-buffer analogue)
     levels: int = 3  # ref: Odometry.cpp CreateImagePyramid 3 levels
     iters: tuple = (16, 8, 4)  # ref: Odometry.cpp MultiScaleComputing
-    stencil_radii: tuple = (8, 4, 4)  # TPU stencil radius per level (coarse first)
+    stencil_radii: tuple = (8, 4, 4)  # stencil radius per level (coarse first)
 
 
 @dataclasses.dataclass

@@ -9,7 +9,7 @@ and exact poses. Every end-to-end test (odometry ATE, TSDF mesh quality,
 BA convergence) measures against these analytic ground truths.
 
 Raymarching is a fixed-iteration `lax.fori_loop` per pixel — static shapes,
-fully vectorised, runs on TPU or CPU.
+fully vectorised, runs on GPU or CPU.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""Tests: device-resident block hash, Pallas TSDF integration, fused SLAM.
+"""Tests: device-resident block hash, TSDF slot integration, fused SLAM.
 
-Covers the round-2 device-resident fusion path: open-addressing hash
-allocation (integration/device_hash.py), the scatter-free Pallas TSDF
-kernel in interpret mode (ops/tsdf_pallas.py) against the reference-exact
-oracle (ops/tsdf.py:integrate_blocks ~ ref src/Integration/Integrator.cpp:
-36-94), and the fused frame step end-to-end on the synthetic scene.
+Covers the device-resident fusion path: open-addressing hash allocation
+(integration/device_hash.py), the pool-row TSDF kernel in interpret mode
+(ops/tsdf_triton.py) against the reference-exact oracle
+(ops/tsdf.py:integrate_blocks) and a float64 transcription of ref
+src/Integration/Integrator.cpp:36-94, and the fused frame step end-to-end
+on the synthetic scene.
 """
 
 import jax
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 
 from onepiece_tpu.integration import device_hash as dh
+from onepiece_tpu.integration.blocks import make_pool, pool_to_blocks
 from onepiece_tpu.ops import tsdf as tsdf_ops
-from onepiece_tpu.ops import tsdf_pallas as tp
+from onepiece_tpu.ops import tsdf_triton
 from onepiece_tpu.ops.tsdf import INVALID_KEY
 
 
@@ -89,7 +91,51 @@ class TestDeviceHash:
         assert np.array_equal(lk, np.array(vals))
 
 
+def _integrate_f64(sdf, w, col, coords, depth, rgb, T_cw, fx, fy, cx, cy, vs, trunc,
+                   max_weight=100.0):
+    """Float64 NumPy transcription of the reference's projective update
+    (Integrator.cpp:36-94): project each voxel center, nearest pixel,
+    sdf = depth - z, update if sdf > -truncation with a weight-1 running
+    average (an empty voxel contributes nothing). Also returns the voxels
+    whose pixel or cutoff an f32 last-bit difference could flip."""
+    n = 8
+    lin = np.arange(n**3)
+    local = np.stack([lin >> 6, (lin >> 3) & 7, lin & 7], -1)
+    pts = ((coords[:, None, :] * n + local[None]).astype(np.float64) + 0.5) * vs
+    pc = pts @ T_cw[:3, :3].T.astype(np.float64) + T_cw[:3, 3]
+    z = pc[..., 2]
+    zs = np.where(z > 1e-6, z, 1.0)
+    u, v = pc[..., 0] / zs * fx + cx, pc[..., 1] / zs * fy + cy
+    ui, vi = np.round(u).astype(np.int64), np.round(v).astype(np.int64)
+    h, wd = depth.shape
+    inb = (ui >= 0) & (ui < wd) & (vi >= 0) & (vi < h) & (z > 1e-6)
+    d = np.where(inb, depth[np.clip(vi, 0, h - 1), np.clip(ui, 0, wd - 1)], 0.0)
+    c = rgb[np.clip(vi, 0, h - 1), np.clip(ui, 0, wd - 1)]
+    m = d - z
+    upd = inb & (d > 0) & (m > -trunc)
+    tsdf = np.clip(m / trunc, -1.0, 1.0)
+    known = w > 0
+    s_out = np.where(upd, (np.where(known, sdf, 0.0) * w + tsdf) / (w + 1.0), sdf)
+    w_out = np.where(upd, np.minimum(w + 1.0, max_weight), w)
+    c_out = np.where(
+        upd[..., None],
+        (np.where(known[..., None], col, 0.0) * w[..., None] + c) / (w[..., None] + 1.0),
+        col,
+    )
+    frac = lambda x: np.abs(x - np.floor(x) - 0.5) < 1e-4  # noqa: E731
+    ambiguous = frac(u) | frac(v) | (np.abs(m + trunc) < 1e-5)
+    return s_out, w_out, c_out, ambiguous
+
+
+def _slot_update(*args):
+    """The fused systems' pool-row update, interpreted on the CPU."""
+    return tsdf_triton.integrate_slots(*args, 0.0125, 0.1, interpret=True)
+
+
 class TestPallasIntegrate:
+    """`ops.tsdf_triton.integrate_slots`: the pool-row update the fused
+    systems run, against the plain reference and a float64 transcription."""
+
     @pytest.fixture()
     def frame(self):
         rng = np.random.default_rng(1)
@@ -106,6 +152,16 @@ class TestPallasIntegrate:
         bc = np.unique(np.floor(pts / 0.1).astype(np.int32), axis=0)[:64]
         return depth, rgb, bc, (fx, fy, cx, cy)
 
+    @staticmethod
+    def _pool(sdf0, w0, col0):
+        nb = len(sdf0)
+        vox = np.zeros((nb + 1, 5, 512), np.float32)
+        vox[:nb, 0] = sdf0
+        vox[:nb, 1] = w0
+        vox[:nb, 2:5] = np.moveaxis(col0, -1, 1)
+        vox[nb, 0] = tsdf_ops.EMPTY_SDF
+        return vox
+
     def test_matches_reference_oracle(self, frame):
         depth, rgb, bc, (fx, fy, cx, cy) = frame
         rng = np.random.default_rng(2)
@@ -115,75 +171,92 @@ class TestPallasIntegrate:
         w0[:, ::7] = 0.0
         col0 = rng.uniform(0, 1, (nb, 512, 3)).astype(np.float32)
         T_cw = np.eye(4, dtype=np.float32)
+        T_cw[:3, 3] = [0.01, -0.02, 0.03]
         s1, w1, c1 = tsdf_ops.integrate_blocks(
             jnp.asarray(sdf0), jnp.asarray(w0), jnp.asarray(col0),
             jnp.asarray(bc), jnp.ones(nb, bool), jnp.asarray(depth),
             jnp.asarray(rgb), jnp.asarray(T_cw),
             fx, fy, cx, cy, 0.0125, 0.1,
         )
-        vox = np.zeros((nb + 1, 5, 512), np.float32)
-        vox[:nb, 0] = sdf0
-        vox[:nb, 1] = w0
-        vox[:nb, 2:5] = np.moveaxis(col0, -1, 1)
-        vox[nb, 0] = tsdf_ops.EMPTY_SDF
         slots = np.full(128, nb, np.int32)
         slots[:nb] = np.arange(nb)
-        keys = np.zeros(128, np.int32)
+        keys = np.full(128, int(INVALID_KEY), np.int32)
         keys[:nb] = _pack(bc)
-        img5 = tp.pack_image(jnp.asarray(depth), jnp.asarray(rgb))
         out = np.asarray(
-            tp.integrate_slots_pallas(
-                jnp.asarray(vox), jnp.asarray(keys), jnp.asarray(slots), img5,
-                jnp.asarray(T_cw), fx, fy, cx, cy, 0.0125, 0.1, interpret=True,
+            _slot_update(
+                jnp.asarray(self._pool(sdf0, w0, col0)), jnp.asarray(keys),
+                jnp.asarray(slots), jnp.asarray(depth), jnp.asarray(rgb),
+                jnp.asarray(T_cw), fx, fy, cx, cy,
             )
         )
         upd = np.asarray(w1) != w0
         assert upd.sum() > 10000, "fixture must exercise real updates"
-        # weights exact; sdf within the bf16 hi/lo depth split (~1e-4 norm);
-        # color within one bf16 ulp
-        assert np.array_equal(np.asarray(w1), out[:nb, 1])
-        assert np.abs(np.asarray(s1) - out[:nb, 0]).max() < 5e-4
-        c2 = np.moveaxis(out[:nb, 2:5], 1, -1)
-        assert np.abs(np.asarray(c1) - c2).max() < 5e-3
-        # trash row untouched semantics: padding slots wrote only row nb
-        assert np.abs(out[: nb, :2]).max() < 1000
+        # both the f32 reference and the float64 transcription of
+        # Integrator.cpp agree with the kernel away from the voxels an f32
+        # last bit can move to another pixel or across the cutoff
+        s64, w64, c64, amb = _integrate_f64(
+            sdf0.astype(np.float64), w0.astype(np.float64), col0.astype(np.float64),
+            bc, depth.astype(np.float64), rgb.astype(np.float64), T_cw, fx, fy, cx, cy,
+            0.0125, 0.1,
+        )
+        ok = ~amb
+        assert amb.sum() < 0.01 * amb.size
+        c_out = np.moveaxis(out[:nb, 2:5], 1, -1)
+        np.testing.assert_array_equal(out[:nb, 1][ok], np.asarray(w1)[ok])
+        assert np.abs(out[:nb, 0] - np.asarray(s1))[ok].max() < 1e-5
+        assert np.abs(c_out - np.asarray(c1)).max(-1)[ok].max() < 1e-5
+        np.testing.assert_array_equal(out[:nb, 1][ok], w64.astype(np.float32)[ok])
+        assert np.abs(out[:nb, 0] - s64)[ok].max() < 1e-5
+        assert np.abs(c_out - c64).max(-1)[ok].max() < 1e-5
 
-    def test_f32_image_path_matches_packed_gray(self, frame):
-        """(2, H, W) f32 [depth, gray] input == pack_image_gray bit-exactly
-        (the in-kernel hi/lo split is the same arithmetic as the pack).
-
-        This asserts interpret-mode equivalence; the same claim on real
-        hardware through Mosaic (interpret=False) is verified by
-        tools/tpu_selfcheck.py, which passed bit-exact on TPU v5e
-        (2026-08-21, incl. Mosaic-vs-interpret agreement)."""
+    def test_padding_and_trash_slots_leave_real_rows_untouched(self, frame):
+        """Padding entries (INVALID key) and dropped blocks (valid key, slot
+        routed to the trash row) must not touch any real row; rows not named
+        in `slots` stay bit-identical."""
         depth, rgb, bc, (fx, fy, cx, cy) = frame
-        gray = rgb[..., 0]
+        rng = np.random.default_rng(3)
         nb = len(bc)
-        vox = np.zeros((nb + 1, 5, 512), np.float32)
-        vox[:, 0] = tsdf_ops.EMPTY_SDF
-        slots = np.full(128, nb, np.int32)
-        slots[:nb] = np.arange(nb)
-        keys = np.zeros(128, np.int32)
-        keys[:nb] = _pack(bc)
-        T_cw = np.eye(4, dtype=np.float32)
-
-        def run(img):
-            return np.asarray(
-                tp.integrate_slots_pallas(
-                    jnp.asarray(vox), jnp.asarray(keys), jnp.asarray(slots),
-                    img, jnp.asarray(T_cw), fx, fy, cx, cy, 0.0125, 0.1,
-                    interpret=True,
-                )
+        vox = self._pool(
+            rng.uniform(-1, 1, (nb, 512)).astype(np.float32),
+            rng.uniform(0, 5, (nb, 512)).astype(np.float32),
+            rng.uniform(0, 1, (nb, 512, 3)).astype(np.float32),
+        )
+        real = np.arange(0, nb, 2)  # odd rows are never named
+        keys = np.full(96, int(INVALID_KEY), np.int32)
+        slots = np.full(96, nb, np.int32)
+        keys[: len(real)] = _pack(bc[real])
+        slots[: len(real)] = real
+        keys[len(real) : len(real) + 8] = _pack(bc[1:16:2])  # dropped: trash row
+        out = np.asarray(
+            _slot_update(
+                jnp.asarray(vox), jnp.asarray(keys), jnp.asarray(slots),
+                jnp.asarray(depth), jnp.asarray(rgb), jnp.asarray(np.eye(4, dtype=np.float32)),
+                fx, fy, cx, cy,
             )
+        )
+        np.testing.assert_array_equal(out[1:nb:2], vox[1:nb:2])
+        assert (out[real, 1] != vox[real, 1]).sum() > 5000
 
-        out_f32 = run(jnp.stack([jnp.asarray(depth), jnp.asarray(gray)]))
-        out_pack = run(tp.pack_image_gray(jnp.asarray(depth), jnp.asarray(gray)))
-        np.testing.assert_array_equal(out_f32, out_pack)
-        assert (out_f32[:nb, 1] > 0).sum() > 5000  # real updates happened
+    def test_gray_color_fills_rgb(self, frame):
+        """A (H, W, 1) gray image writes r = g = b, as the rgb path would
+        with the gray plane replicated."""
+        depth, rgb, bc, (fx, fy, cx, cy) = frame
+        gray = rgb[..., :1]
+        nb = len(bc)
+        keys = jnp.asarray(_pack(bc))
+        slots = jnp.arange(nb, dtype=jnp.int32)
+        args = (jnp.asarray(depth),)
+        rest = (jnp.asarray(np.eye(4, dtype=np.float32)), fx, fy, cx, cy)
+        a = _slot_update(make_pool(nb), keys, slots, *args, jnp.asarray(gray), *rest)
+        b = _slot_update(
+            make_pool(nb), keys, slots, *args, jnp.asarray(np.repeat(gray, 3, -1)), *rest
+        )
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert (np.asarray(a)[:nb, 1] > 0).sum() > 5000
 
     def test_pool_roundtrip_layout(self):
-        vox = tp.make_pool(4)
-        sdf, weight, color = tp.pool_to_blocks(vox)
+        vox = make_pool(4)
+        sdf, weight, color = pool_to_blocks(vox)
         assert sdf.shape == (4, 8, 8, 8)
         assert float(sdf[0, 0, 0, 0]) == tsdf_ops.EMPTY_SDF
         assert float(weight.max()) == 0.0

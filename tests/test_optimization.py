@@ -137,8 +137,7 @@ def test_full_ba_noise_free_exact():
 def test_full_ba_large_scale():
     """The dense-matmul Schur path solves a BATest-style problem at real
     scale — F=60 keyframes / 6k points / 30k observations here for CI; the
-    F=200 / 20k / 100k target runs on the chip (converges 300x to the
-    0.5 px noise floor in ~10 s, VERDICT r3 weak #6). No (P, Omax, Omax)
+    F=200 / 20k / 100k target is for the GPU. No (P, Omax, Omax)
     pair tensor is materialised any more."""
     from onepiece_tpu.geometry import se3 as _se3
 

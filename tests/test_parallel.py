@@ -147,7 +147,7 @@ def test_tsdf_sharded_dryrun(mesh, cam):
 def test_fused_sharded_matches_single_device(mesh, cam):
     from onepiece_tpu.parallel import fused
 
-    fused.dryrun(mesh, cam)  # raises on any mismatch vs single-device pool
+    fused.dryrun(mesh, cam, interpret=True)  # raises on any mismatch vs single-device pool
 
 
 @pytest.mark.slow
@@ -156,7 +156,7 @@ def test_mc_sharded_and_migration_match_single_device(mesh, cam):
 
     # self-checking: sharded halo-exchange meshing == single-device mesh,
     # and the mesh survives all_to_all block migration unchanged
-    mc.dryrun(mesh, cam)
+    mc.dryrun(mesh, cam, interpret=True)
 
 
 @pytest.mark.slow

@@ -102,22 +102,25 @@ def test_global_registration_recovers_large_motion():
     np.testing.assert_allclose(np.asarray(refined.T), np.asarray(T_gt), atol=5e-3)
 
 
-def test_nn1_pallas_matches_xla_knn():
-    """Fused Pallas 1-NN (interpret mode) == XLA brute-force kNN, up to fp
-    tie-breaks: distances of the chosen neighbours must agree."""
+def test_knn_exact_far_from_origin():
+    """Points ~4 m from the origin, ~1 cm apart: the expanded distance form
+    |q|^2 + |r|^2 - 2 q.r would cancel ~32 m^2 down to ~1e-4 m^2 and
+    reorder neighbours in f32. The direct form must return the float64
+    brute-force answer exactly, with distances to 1e-6 m^2."""
     import jax.numpy as jnp
 
     from onepiece_tpu.ops import knn as knn_ops
-    from onepiece_tpu.ops import knn_pallas as knp
 
     rng = np.random.default_rng(5)
-    q = jnp.asarray(rng.normal(size=(300, 3)).astype(np.float32))
-    r = jnp.asarray(rng.normal(size=(500, 3)).astype(np.float32))
-    v = jnp.asarray(rng.random(500) > 0.2)
-    i1, d1 = knn_ops.knn(q, r, v, k=1)
-    i2, d2 = knp.nn1_pallas(q, r, v, interpret=True)
-    np.testing.assert_allclose(np.asarray(d2), np.asarray(d1)[:, 0], atol=1e-4)
-    same = np.asarray(i1)[:, 0] == np.asarray(i2)
-    assert same.mean() > 0.99  # disagreements only at fp ties
-    # every chosen neighbour must be valid
-    assert np.asarray(v)[np.asarray(i2)].all()
+    side = 40
+    g = np.arange(side) * 0.01
+    x, y = (a.reshape(-1) for a in np.meshgrid(g, g))
+    r = np.stack([x, y, 0.05 * np.sin(20 * x)], -1) + rng.uniform(-0.003, 0.003, (side * side, 3))
+    r = (r + np.array([2.0, -1.5, 3.0])).astype(np.float32)
+    q = (r[::3] + rng.normal(0, 0.004, r[::3].shape)).astype(np.float32)
+    v = rng.random(len(r)) > 0.1
+    idx, d2 = knn_ops.knn(jnp.asarray(q), jnp.asarray(r), jnp.asarray(v), k=1, tile=256)
+    dd = ((q.astype(np.float64)[:, None] - r.astype(np.float64)[None]) ** 2).sum(-1)
+    dd[:, ~v] = np.inf
+    np.testing.assert_array_equal(np.asarray(idx)[:, 0], dd.argmin(-1))
+    np.testing.assert_allclose(np.asarray(d2)[:, 0], dd.min(-1), atol=1e-6)

@@ -113,7 +113,7 @@ def test_sparse_tracking_synthetic():
 
 
 def test_hamming_table_matmul_exact():
-    """The MXU sign-vector formulation must equal XOR+popcount exactly."""
+    """The matmul sign-vector formulation must equal XOR+popcount exactly."""
     import jax
     import jax.numpy as jnp
 

@@ -5,8 +5,7 @@ The single-process tests exercise every collective on a virtual 8-device
 mesh; what they cannot exercise is `jax.distributed.initialize` itself —
 the coordinator handshake, cross-process device enumeration, and
 collectives that actually cross a process boundary (Gloo on CPU here, the
-same code path ICI/DCN takes on a real multi-host TPU slice; SURVEY §5
-comm backend).
+same runtime path NCCL takes across GPU hosts; SURVEY §5 comm backend).
 
 Launcher mode (default): spawns N worker subprocesses of this script and
 verifies every one reports success.
@@ -33,7 +32,6 @@ OK_MARKER = "DISTRIBUTED-OK"
 
 def worker(pid: int, nproc: int, coordinator: str) -> None:
     os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ["JAX_PLATFORM_NAME"] = "cpu"
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -42,7 +40,7 @@ def worker(pid: int, nproc: int, coordinator: str) -> None:
     )
     import jax.numpy as jnp
     import numpy as np
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import Mesh, PartitionSpec as P
 
     devs = np.array(jax.devices())

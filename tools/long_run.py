@@ -17,7 +17,7 @@ the steady-state number a production deployment would see. The wall-clock
 including warmup is also recorded for honesty.
 
 Writes LONGRUN.json (summary) and longrun_metrics.jsonl (per-chunk
-metrics). Run on the TPU: `python tools/long_run.py [--frames 200]`.
+metrics). Run on the GPU: `python tools/long_run.py [--frames 200]`.
 """
 
 import argparse

@@ -1,4 +1,4 @@
-"""Per-stage wall-clock profile of the fused SLAM frame step on the real chip.
+"""Per-stage wall-clock profile of the fused SLAM frame step on the device.
 
 Times each sub-stage of `systems.fused_slam.fused_frame_step` as its own
 jitted program (so per-stage dispatch overhead is included once each), then
@@ -19,9 +19,10 @@ import jax.numpy as jnp
 from onepiece_tpu.geometry import se3
 from onepiece_tpu.geometry.camera import TUM_CAMERA
 from onepiece_tpu.integration import device_hash as dh
+from onepiece_tpu.integration.blocks import make_pool
 from onepiece_tpu.odometry import dense
 from onepiece_tpu.ops import tsdf as tsdf_ops
-from onepiece_tpu.ops import tsdf_pallas as tp
+from onepiece_tpu.ops import tsdf_triton
 from onepiece_tpu.ops.image import bilateral_filter
 from onepiece_tpu.systems.fused_slam import FusedDenseFusion, fused_frame_step
 from onepiece_tpu.utils import synthetic
@@ -87,20 +88,16 @@ def main():
     timeit("dh.insert (1 round, warm table)", ins, table, keys)
     _, slots = ins(table, keys)
 
-    # stage 6: f32 image stack + pallas integrate (in-kernel hi/lo split)
-    stack2 = jax.jit(lambda d, g: jnp.stack([d, g]))
-    timeit("img f32 stack", stack2, d_f, g1)
-    img3 = stack2(d_f, g1)
+    # stage 6: TSDF slot update of the pool
     cap = 16384
-    vox = tp.make_pool(cap)
     slots_safe = jnp.where(slots < 0, cap, slots).astype(jnp.int32)
     T_cw = se3.inverse_T(T_w)
 
-    def integ(v, k, s, i, t):
-        return tp.integrate_slots_pallas(
-            v, k, s, i, t, cam.fx, cam.fy, cam.cx, cam.cy, 0.0125, 0.1)
-    timeit("integrate_slots_pallas (k=4096)", jax.jit(integ), vox, keys,
-           slots_safe, img3, T_cw)
+    def integ(v, k, s, d, g, t):
+        return tsdf_triton.integrate_slots(
+            v, k, s, d, g[..., None], t, cam.fx, cam.fy, cam.cx, cam.cy, 0.0125, 0.1)
+    timeit("tsdf_triton.integrate_slots (k=4096)", jax.jit(integ), make_pool(cap), keys,
+           slots_safe, d_f, g1, T_cw)
 
     # full fused step for comparison
     slam = FusedDenseFusion(cam, radii=RADII)

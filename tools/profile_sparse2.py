@@ -3,7 +3,7 @@
 Isolates (a) FAST+NMS+topk, (b) blur+patch gather, (c) BRIEF selector
 matmul + packing, and (d) the fused chunk with keyframe promotion disabled
 (keyframe_disparity=1e9 -> no LC stage, no pose-graph) to attribute the
-'other' 58 ms of profile_sparse.py.
+'other' share of profile_sparse.py.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 
 CLI rebuild of ref example/GetLabelUsingKDTree.cpp: for each point of the
 target cloud, copy the label (color) of its nearest source point — the
-KD-tree replaced by the exact MXU distance matmul.
+KD-tree replaced by the exact brute-force nearest neighbour (ops/knn.py).
 """
 
 import argparse
