@@ -123,17 +123,23 @@ def _voxel_centers(keys: np.ndarray, voxel_size: float) -> np.ndarray:
     return ((c[:, None, :] * 8 + local[None]).astype(np.float64) + 0.5) * voxel_size
 
 
+def ambiguous(u, v, sdf, truncation):
+    """Voxels a last-bit difference can flip: projection (u, v) within PX_EPS
+    px of a rounding boundary, or sdf = depth - z within CUT_EPS of the
+    -truncation cutoff."""
+    near = lambda x: np.abs(x - np.floor(x) - 0.5) < PX_EPS  # noqa: E731
+    return near(u) | near(v) | (np.abs(sdf + truncation) < CUT_EPS)
+
+
 def _ambiguous_voxels(keys, T_cw, depth, cam, voxel_size, truncation):
-    """(K, 512) bool: voxels whose outcome a last-bit difference can flip."""
+    """(K, 512) bool: `ambiguous` for every voxel of the blocks `keys`."""
     pc = _voxel_centers(keys, voxel_size) @ T_cw[:3, :3].T + T_cw[:3, 3]
     z = np.where(pc[..., 2] > 1e-6, pc[..., 2], 1.0)
     u = pc[..., 0] / z * cam.fx + cam.cx
     v = pc[..., 1] / z * cam.fy + cam.cy
-    near = lambda x: np.abs(x - np.floor(x) - 0.5) < PX_EPS  # noqa: E731
     ui = np.clip(np.round(u).astype(np.int64), 0, depth.shape[1] - 1)
     vi = np.clip(np.round(v).astype(np.int64), 0, depth.shape[0] - 1)
-    cut = np.abs(depth[vi, ui] - pc[..., 2] + truncation) < CUT_EPS
-    return near(u) | near(v) | cut
+    return ambiguous(u, v, depth[vi, ui] - pc[..., 2], truncation)
 
 
 def _reference_update(pool, keys, slots, depth, color, T_cw, cam, voxel_size, truncation):

@@ -117,6 +117,7 @@ def distributed_ba_step(
     F = poses.shape[0]
     lamf = jnp.float32(lam)
 
+    @jax.jit
     @functools.partial(
         shard_map,
         mesh=mesh,

@@ -59,16 +59,15 @@ def dense_tracking_sharded(
         cam = cams[li]
         n_it = iters[levels - 1 - li]
 
+        @jax.jit
         @functools.partial(
             shard_map,
             mesh=mesh,
-            in_specs=(P(), P(axis), P(axis), P(axis), P(None, None)),
+            in_specs=(P(), P(axis), P(axis), P(axis), P()),
             out_specs=(P(), P(), P(), P()),
             check_vma=False,
         )
-        def level_step(T0, pts, gray, valid, tgt_gray, _tgt=tgt, _cam=cam, _n=n_it):
-            del tgt_gray  # TermData passed via closure (replicated)
-
+        def level_step(T0, pts, gray, valid, _tgt, _cam=cam, _n=n_it):
             def body(_, carry):
                 Tc, _ne = carry
                 part = dops.normal_equations(
@@ -92,7 +91,7 @@ def dense_tracking_sharded(
             Tn, nef = jax.lax.fori_loop(0, _n, body, (T0, ne0))
             return Tn, nef.cost, nef.num_inliers, nef.JTr
 
-        T, cost, cnt, _ = level_step(T, src_pts, src_gray, src_valid, tgt.gray)
+        T, cost, cnt, _ = level_step(T, src_pts, src_gray, src_valid, tgt)
         ne = (cost, cnt)
     rmse = jnp.sqrt(ne[0] / jnp.clip(ne[1], 1.0, None))
     return dense.DenseTrackingResult(T, ne[0], ne[1], rmse)

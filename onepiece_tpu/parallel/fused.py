@@ -64,6 +64,7 @@ def fused_tsdf_step_sharded(
     cap_total = cap_local * mesh.shape[axis]
     assert table.block_coords.shape[0] >= cap_total
 
+    @jax.jit
     @functools.partial(
         shard_map,
         mesh=mesh,

@@ -123,6 +123,7 @@ def extract_mesh_sharded(
     cap_local = vox_sh.shape[1] - 1
     cap = cap_local * cap_per_block
 
+    @jax.jit
     @functools.partial(
         shard_map,
         mesh=mesh,
@@ -268,6 +269,7 @@ def reshard_blocks(
     # ---- data movement: one all_to_all -----------------------------------
     row_sz = 5 * N_VOX
 
+    @jax.jit
     @functools.partial(
         shard_map,
         mesh=mesh,

@@ -27,12 +27,16 @@ natural multi-device scaling dimension for offline/recorded sequences:
 
 `submap_pipeline_serial` runs the exact same stage functions sequentially
 on one device — the sharded path must reproduce it (see
-tests/test_parallel.py::test_submap_parallel_matches_serial).
+tests/test_parallel.py::test_submap_parallel_matches_serial). Both paths
+are jitted: the sharded body compiles once as one SPMD program and each
+serial stage once for all submaps (run eagerly, every primitive would be
+compiled and dispatched on its own, which on a GPU costs minutes).
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import NamedTuple
 
 import jax
@@ -284,34 +288,40 @@ def submap_pipeline_serial(
     base_poses, edges)."""
     s, f = grays.shape[:2]
     params = global_reg.RansacParams(voxel_size=voxel_size)
+    max_loops = max(s - 2, 0)
+    track = jax.jit(
+        lambda g, d, pg, pd, hp: track_one_submap(g, d, pg, pd, hp, camera, iters, radii)
+    )
+    build = jax.jit(
+        lambda g, d, t: build_submap_geometry(
+            g, d, t, camera, voxel_size, cloud_capacity, params
+        )
+    )
+    register = jax.jit(
+        lambda i, geo, prev, all_geo, base: register_one_submap(
+            i, geo, prev, all_geo, base, icp_threshold, params, max_loops
+        )
+    )
     tracks = []
     for i in range(s):
         pg = grays[i - 1, -1] if i > 0 else grays[0, 0]
         pd = depths[i - 1, -1] if i > 0 else depths[0, 0]
         tracks.append(
-            track_one_submap(
+            track(
                 jnp.asarray(grays[i]), jnp.asarray(depths[i]),
                 jnp.asarray(pg), jnp.asarray(pd), jnp.bool_(i > 0),
-                camera, iters, radii,
             )
         )
     rel_last = jnp.stack([t.rel[-1] for t in tracks])
     steps = jnp.stack([t.step for t in tracks])
     base = chain_base_poses(rel_last, steps)
     geos = [
-        build_submap_geometry(
-            jnp.asarray(grays[i]), jnp.asarray(depths[i]), tracks[i], camera,
-            voxel_size, cloud_capacity, params,
-        )
+        build(jnp.asarray(grays[i]), jnp.asarray(depths[i]), tracks[i])
         for i in range(s)
     ]
     all_geo = jax.tree.map(lambda *a: jnp.stack(a), *geos)
-    max_loops = max(s - 2, 0)
     edges = [
-        register_one_submap(
-            jnp.int32(i), geos[i], geos[i - 1] if i > 0 else geos[0],
-            all_geo, base, icp_threshold, params, max_loops,
-        )
+        register(jnp.int32(i), geos[i], geos[i - 1] if i > 0 else geos[0], all_geo, base)
         for i in range(s)
     ]
     edges_st = jax.tree.map(lambda *a: jnp.stack(a), *edges)
@@ -350,6 +360,7 @@ def submap_pipeline_sharded(
     prev_d = np.concatenate([depths[:1, 0], depths[:-1, -1]])
     has_prev = np.arange(s) > 0
 
+    @jax.jit
     @functools.partial(
         shard_map,
         mesh=mesh,
@@ -424,15 +435,22 @@ def dryrun(mesh: Mesh, camera, axis: str = "d") -> None:
     grays = np.stack(grays).reshape(s, f, camera.height, camera.width)
     depths = np.stack(depths).reshape(s, f, camera.height, camera.width)
     kw = dict(voxel_size=0.08, cloud_capacity=256)
+    t0 = time.perf_counter()
     fp, base, edges, _geos, _braw = submap_pipeline_sharded(
         grays, depths, camera, mesh, axis=axis, **kw
     )
+    sharded_s = time.perf_counter() - t0
     assert np.isfinite(fp).all(), "sharded submap pipeline produced non-finite poses"
     # single-device run of the same stages; the chained odometry
     # reassociates under the sharded body's fusion, hence the cm budget
     # (tests/test_parallel.py bounds each stage separately)
+    t0 = time.perf_counter()
     fp_ser, _, edges_ser, _, _ = submap_pipeline_serial(grays, depths, camera, **kw)
+    serial_s = time.perf_counter() - t0
     assert np.array_equal(np.asarray(edges.valid), np.asarray(edges_ser.valid))
     err = float(np.abs(fp - fp_ser).max())
     assert err < 3e-2, f"sharded submap poses differ from single-device: {err}"
-    print(f"parallel.submap dryrun ok: {n_dev} submaps, max |pose diff| {err:.2e}")
+    print(
+        f"parallel.submap dryrun ok: {n_dev} submaps, max |pose diff| {err:.2e}"
+        f" (sharded {sharded_s:.1f} s, serial {serial_s:.1f} s, compiles included)"
+    )

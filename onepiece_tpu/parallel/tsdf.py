@@ -38,6 +38,7 @@ def integrate_blocks_sharded(
 ):
     """Same math as ops.tsdf.integrate_blocks with the block axis sharded."""
 
+    @jax.jit
     @functools.partial(
         shard_map,
         mesh=mesh,

@@ -8,11 +8,17 @@ src/Integration/Integrator.cpp:36-94, and the fused frame step end-to-end
 on the synthetic scene.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
 from onepiece_tpu.integration import device_hash as dh
 from onepiece_tpu.integration.blocks import make_pool, pool_to_blocks
 from onepiece_tpu.ops import tsdf as tsdf_ops
@@ -122,9 +128,7 @@ def _integrate_f64(sdf, w, col, coords, depth, rgb, T_cw, fx, fy, cx, cy, vs, tr
         (np.where(known[..., None], col, 0.0) * w[..., None] + c) / (w[..., None] + 1.0),
         col,
     )
-    frac = lambda x: np.abs(x - np.floor(x) - 0.5) < 1e-4  # noqa: E731
-    ambiguous = frac(u) | frac(v) | (np.abs(m + trunc) < 1e-5)
-    return s_out, w_out, c_out, ambiguous
+    return s_out, w_out, c_out, chip_smoke.ambiguous(u, v, m, trunc)
 
 
 def _slot_update(*args):

@@ -6,6 +6,9 @@ equations, point-sharded BA Schur psum, block-sharded TSDF integration,
 and the sharded fused (device-hash + Pallas) TSDF step.
 """
 
+import os
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -245,3 +248,14 @@ def test_submap_parallel_matches_serial(mesh, cam):
     np.testing.assert_allclose(fp_sh, fp_ser, atol=3e-2)
     # the consecutive-ICP edges must actually have fired
     assert np.asarray(edges_sh.valid)[1:, 0].sum() >= s - 2
+
+
+@pytest.mark.slow
+def test_dryrun_multichip_on_four_devices():
+    """The path `chip_smoke.py --four` runs on four cards: every sharded
+    path against its single-device result, here on four virtual CPU
+    devices with the TSDF kernel interpreted."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import __graft_entry__
+
+    __graft_entry__.dryrun_multichip(4, interpret=True)
